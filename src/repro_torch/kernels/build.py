@@ -19,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
-SOURCES = ("lane_fold",)
+SOURCES = ("lane_fold", "quant_matmul", "popcount_matmul", "flash_attention")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

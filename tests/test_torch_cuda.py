@@ -80,3 +80,130 @@ def test_cram_matmul_on_card_runs_the_kernel(card):
     got = cram.cram_matmul(x, w, n=4, signed=True)
     assert bp.lane_fold_cuda.launches > before
     np.testing.assert_array_equal(got, x.astype(np.int64) @ w)
+
+
+# ---------------------------------------------------------------------------
+# The GEMM kernels and flash attention
+# ---------------------------------------------------------------------------
+from repro_torch.kernels import bitserial_matmul as bsm  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
+
+
+def _ints(rng, bits, signed, shape):
+    lo, hi = (-(1 << (bits - 1)), 1 << (bits - 1)) if signed \
+        else (0, 1 << bits)
+    return rng.integers(lo, hi, shape)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (1, 896, 128), (7, 64, 130),
+                                   (33, 4864, 96), (128, 96, 4864)])
+def test_quant_matmul_kernel_matches_plain(card, m, k, n, bits):
+    rng = np.random.default_rng(70 + bits)
+    a = torch.from_numpy(_ints(rng, 8, True, (m, k))).to(torch.int8)
+    w = torch.from_numpy(_ints(rng, bits, True, (k, n)))
+    scale = torch.from_numpy(rng.uniform(0.001, 0.1, n).astype(np.float32))
+    a, scale = a.to(card), scale.to(card)
+    wp = ops.pack_bitplanes(w.to(card), bits, axis=0)
+    before = bsm.quant_matmul_cuda.launches
+    got = ops.quant_matmul(a, wp, scale, bits=bits)
+    assert bsm.quant_matmul_cuda.launches == before + 1
+    want = bsm.quant_matmul_torch(a, wp, scale, bits=bits)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.cpu().numpy().view(np.int32))
+    exact = (a.cpu().numpy().astype(np.int64) @ w.numpy()
+             ).astype(np.float32) * scale.cpu().numpy()[None, :]
+    np.testing.assert_array_equal(got.cpu().numpy(), exact)
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["signed", "unsigned"])
+@pytest.mark.parametrize("ba,bw", [(8, 4), (4, 4), (4, 8), (1, 3)])
+@pytest.mark.parametrize("m,k,n", [(1, 4864, 70), (9, 288, 129)])
+def test_popcount_matmul_kernel_matches_plain(card, m, k, n, ba, bw, signed):
+    rng = np.random.default_rng(80 + ba + bw)
+    a = _ints(rng, ba, signed, (m, k))
+    w = _ints(rng, bw, signed, (k, n))
+    ap = ops.pack_bitplanes(torch.from_numpy(a).to(card), ba, axis=1)
+    wp = ops.pack_bitplanes(torch.from_numpy(w).to(card), bw, axis=0)
+    before = bsm.popcount_matmul_cuda.launches
+    got = ops.popcount_matmul(ap, wp, a_signed=signed, w_signed=signed)
+    assert bsm.popcount_matmul_cuda.launches == before + 1
+    want = bsm.popcount_matmul_torch(ap, wp, a_signed=signed,
+                                     w_signed=signed)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  a.astype(np.int64) @ w.astype(np.int64))
+
+
+def test_gemm_kernels_reject_what_they_do_not_take(card):
+    a = torch.zeros((4, 64), dtype=torch.int8, device=card)
+    wp = torch.zeros((4, 2, 8), dtype=torch.int32, device=card)
+    s = torch.ones(8, device=card)
+    with pytest.raises(ValueError):
+        bsm.quant_matmul_cuda(a[:, :48], wp, s, bits=4)      # K % 32
+    with pytest.raises(ValueError):
+        bsm.quant_matmul_cuda(a, wp.transpose(1, 2).contiguous()
+                              .transpose(1, 2), s, bits=4)   # strided
+    with pytest.raises(ValueError):
+        bsm.quant_matmul_cuda(a, wp, s, bits=9)
+    with pytest.raises(TypeError):
+        bsm.popcount_matmul_cuda(wp.to(torch.int64), wp)
+    with pytest.raises(ValueError):
+        bsm.popcount_matmul_cuda(torch.zeros((9, 4, 2), dtype=torch.int32,
+                                             device=card), wp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("bh,s,hd", [(14, 256, 64), (3, 1000, 128),
+                                     (2, 77, 32), (5, 9, 96), (4, 1, 64)])
+def test_flash_attention_kernel_matches_plain(card, bh, s, hd, causal,
+                                              dtype):
+    rng = np.random.default_rng(90)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (bh, s, hd))
+                                .astype(np.float32)).to(card, dtype)
+               for _ in range(3))
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention_cuda.launches == before + 1
+    want = fa.flash_attention_torch(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    # float32: the reference's 2e-4; bf16: one rounding of the output
+    tol = 2e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(card):
+    q = torch.zeros((2, 8, 64), device=card)
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q[..., :48].contiguous(),
+                                q[..., :48].contiguous(),
+                                q[..., :48].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention_cuda(q.transpose(0, 1), q.transpose(0, 1),
+                                q.transpose(0, 1))
+
+
+def test_pim_linear_on_card_runs_the_kernels(card):
+    from repro_torch.pim import linear as pl
+    gen = torch.Generator().manual_seed(3)
+    dense = pl.linear_init(gen, 256, 96, pl.PimConfig())
+    assert dense["w"].device.type == "cuda"
+    x = torch.randn((5, 256), generator=gen).to(card, torch.bfloat16)
+    packed = pl.pack_linear(dense, pl.PimConfig(weight_bits=4))
+    want = pl.linear_apply(packed, x, pl.PimConfig(mode="ref"))
+    for mode, fn in (("pallas", bsm.quant_matmul_cuda),
+                     ("popcount", bsm.popcount_matmul_cuda)):
+        before = fn.launches
+        got = pl.linear_apply(packed, x, pl.PimConfig(mode=mode))
+        assert fn.launches == before + 1
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
