@@ -53,9 +53,14 @@ from repro_torch.pim import linear as pl  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit non-tensor-core peak (data sheet)
-FP32_FLOPS = 67e12             # float32 outside the tensor cores
+TF32_FLOPS = 495e12            # TF32 tensor cores, dense
 BF16_FLOPS = 989e12            # bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12       # int8 tensor cores, dense
+
+
+#: kernels whose design runs on the tensor cores: the build phase fails
+#: when their SASS holds no tensor-core instruction
+TENSOR_CORE_KERNELS = ("popcount_matmul", "flash_attention")
 
 
 def emit(obj):
@@ -553,6 +558,36 @@ def dense_bound(bits, k):
     return 0.03
 
 
+def prefill_pass(params, x, pim, cfg, seqs):
+    """Where the time of one prefill pass of :func:`layer0` goes: the
+    unprofiled wall over 5 passes, then, on the card, 3 passes under
+    torch.profiler: device busy time, kernels and the top 8 by time."""
+    cuda = x.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        layer0(params, x, pim, cfg, seqs)
+    sync()
+    out = {"wall_ms_per_pass": (time.perf_counter() - t0) / 5 * 1e3}
+    if not cuda:
+        return out
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            layer0(params, x, pim, cfg, seqs)
+        sync()
+    ev = cuda_events(prof)
+    out.update({
+        "device_busy_ms_per_pass": sum(e[0] for e in ev) / 3 / 1e3,
+        "device_kernels_per_pass": sum(e[1] for e in ev) / 3,
+        "top_kernels": [{"name": n[:80], "count": c // 3,
+                         "ms_per_pass": us / 3 / 1e3}
+                        for us, c, n in ev[:8]]})
+    return out
+
+
 def phase_pim_linear(seed, dev=None, cfg=None, tokens=TOKENS,
                      decode=DECODE_SEQS):
     """The slice's main path: layer 0 of qwen2-0.5b at its published
@@ -630,35 +665,11 @@ def phase_pim_linear(seed, dev=None, cfg=None, tokens=TOKENS,
                         f"{label} {st} {n}: mean error {ratio:.4f} x mean "
                         f"magnitude of the dense result")
                 errs[f"{label} {st} {n}"] = ratio
-    # where the time of one prefill pass goes: unprofiled wall over 5
-    # passes, then 3 passes under torch.profiler (not counted above)
-    where = {}
+    # where the time of one prefill pass goes (not counted above)
     x, seqs = steps["prefill"]
-    for label in ("W4A8 pallas", "W4A8 popcount"):
-        bits, mode = modes[label]
-        pim = pl.PimConfig(mode=mode, weight_bits=bits)
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            layer0(packed[bits], x, pim, cfg, seqs)
-        sync()
-        where[label] = {"wall_ms_per_pass": (time.perf_counter() - t0) / 5
-                        * 1e3}
-        if dev.type != "cuda":
-            continue
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                layer0(packed[bits], x, pim, cfg, seqs)
-            sync()
-        ev = cuda_events(prof)
-        where[label].update({
-            "device_busy_ms_per_pass": sum(e[0] for e in ev) / 3 / 1e3,
-            "device_kernels_per_pass": sum(e[1] for e in ev) / 3,
-            "top_kernels": [{"name": n[:80], "count": c // 3,
-                             "ms_per_pass": us / 3 / 1e3}
-                            for us, c, n in ev[:8]]})
+    where = {label: prefill_pass(packed[modes[label][0]], x, pl.PimConfig(
+        mode=modes[label][1], weight_bits=modes[label][0]), cfg, seqs)
+        for label in ("W4A8 pallas", "W4A8 popcount")}
     # flash_attention at the path's own shapes (bf16, causal)
     flash_times = {}
     if dev.type == "cuda":
@@ -757,8 +768,11 @@ def phase_flash(rng):
             bh, sl, hd = q.shape
             pairs = bh * sl * (sl + 1) // 2 if causal else bh * sl * sl
             nbytes = 4 * q.numel() * q.element_size()
-            peak = FP32_FLOPS if dt == torch.float32 else BF16_FLOPS
-            bms, bby = bound_ms(nbytes, 4 * hd * pairs, peak)
+            # float32's quickest route at float32 accuracy is 3xTF32 on
+            # the tensor cores: 495 / 3 TFLOP/s beats 67 on the SIMT pipes
+            bms, bby = bound_ms(nbytes, 4 * hd * pairs, BF16_FLOPS) \
+                if dt == torch.bfloat16 else \
+                bound_ms(nbytes, 3 * 4 * hd * pairs, TF32_FLOPS)
             out["variants"][f"{str(dt)[6:]} causal={causal}"] = {
                 **flash_error(got, plain), "ms": kt["ms"],
                 "event_ms": kt["event_ms"], "plain_ms": pt["ms"],
@@ -767,6 +781,20 @@ def phase_flash(rng):
                 "library_error": lib_err,
                 "bound_ms": bms, "bound_by": bby, "bytes": nbytes,
                 "flops": 4 * hd * pairs}
+    # the main path's prefill attention, (14, 128, 64) bf16 causal, beside
+    # SDPA on the same inputs
+    q, k, v = (x.to(torch.bfloat16) for x in attn_inputs(rng, cfg, 128))
+    got = fa.flash_attention_cuda(q, k, v)
+    if not flash_agrees(got, fa.flash_attention_torch(q, k, v)):
+        raise AssertionError("flash (14, 128, 64) bf16 causal != plain")
+    kt = timings(lambda: fa.flash_attention_cuda(q, k, v))
+    lib, lib_err = try_timings(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True))
+    out["path_prefill"] = {
+        "shape": list(q.shape), "dtype": "bfloat16", "causal": True,
+        "ms": kt["ms"], "event_ms": kt["event_ms"], "library_ms": lib["ms"],
+        "library_event_ms": lib["event_ms"], "library_error": lib_err}
     # ragged lengths and other head dims against the plain version
     for bh, sl, hd in ((3, 1000, 128), (2, 77, 32), (5, 9, 96)):
         q, k, v = (torch.from_numpy(rng.normal(0, 1, (bh, sl, hd))
@@ -797,11 +825,17 @@ def main():
     print(smi, flush=True)
     t0 = time.perf_counter()
     built = build.build_all()
+    sass = {name: build.tensor_core_ops(name) for name in build.SOURCES}
+    for name in TENSOR_CORE_KERNELS:
+        if not any(sass[name].values()):
+            raise AssertionError(f"{name}: no tensor-core instruction in "
+                                 f"its SASS {sass[name]}")
     emit({"phase": "build", "ok": True,
           "seconds": time.perf_counter() - t0,
           "built": {k: v["seconds"] for k, v in built.items()},
           "ptxas": [ln for v in built.values()
                     for ln in v["log"].splitlines() if "ptxas" in ln],
+          "tensor_core_sass": sass,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     rng = np.random.default_rng(args.seed)
     stats = phase_kernel(rng)

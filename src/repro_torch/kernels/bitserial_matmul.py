@@ -11,7 +11,9 @@ and are consumed packed (the "compute mode"):
   channel (``csrc/quant_matmul.cu``).
 * :func:`popcount_matmul` -- the PIM-faithful path.  Both operands stay
   as bit planes and partial products are ``popcount(AND)`` per plane
-  pair with power-of-two recombination (``csrc/popcount_matmul.cu``).
+  pair with power-of-two recombination.  The kernel computes the same
+  integer sum on the int8 tensor cores: it unpacks both operands' planes
+  to 8-bit values inside the thread block (``csrc/popcount_matmul.cu``).
 
 Both dispatch on the device of their inputs: CUDA tensors launch the
 kernel (counted in ``<kernel>_cuda.launches``), CPU tensors run the

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -20,6 +21,9 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
 SOURCES = ("lane_fold", "quant_matmul", "popcount_matmul", "flash_attention")
+#: SASS mnemonics of the tensor cores: warpgroup (wgmma) and warp
+#: (mma.sync) MMAs, floating point and integer
+TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -83,3 +87,17 @@ def library(name: str) -> Path:
     if not out.exists():
         build_all([name])
     return out
+
+
+def tensor_core_ops(name: str, timeout: float = 120) -> dict:
+    """Count of each of :data:`TENSOR_CORE_OPS` in the SASS of the built
+    library for ``csrc/<name>.cu``, from ``cuobjdump -sass`` (beside
+    ``nvcc``).  Raises when the tool is missing, fails or times out."""
+    tool = Path(nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        raise FileNotFoundError(f"cuobjdump not found beside {nvcc()}")
+    sass = subprocess.run([str(tool), "-sass", str(library(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=timeout).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in TENSOR_CORE_OPS}

@@ -3,7 +3,9 @@ its plain PyTorch version.
 
 The counterpart of ``repro.kernels.flash_attention``.  Scores and the
 online-softmax state (running max, sum, accumulator) are float32 and
-never leave the thread block (``csrc/flash_attention.cu``).  CUDA inputs
+never leave the thread block; both products run on the tensor cores
+(``csrc/flash_attention.cu``: bf16 with P split into two bf16 terms,
+float32 as 3xTF32).  CUDA inputs
 launch the kernel (counted in ``flash_attention_cuda.launches``); CPU
 inputs run :func:`flash_attention_torch`, the blockwise loop of the
 reference kernel.  :func:`attention_ref` is the naive oracle.
@@ -23,7 +25,8 @@ __all__ = ["NEG_INF", "flash_attention", "flash_attention_torch",
 
 NEG_INF = -1e30
 
-#: head dims the CUDA kernel takes (accumulator in registers, 32 lanes)
+#: head dims the CUDA kernel takes (multiples of its 16-wide MMA steps,
+#: accumulator in registers)
 FLASH_HEAD_DIMS = (32, 64, 96, 128)
 
 #: keys per block of the plain version's loop (the reference's block_k)
@@ -108,6 +111,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         raise ValueError(f"flash_attention_cuda: unsupported (BH, S, hd) = "
                          f"{(bh, s, hd)} (hd in {FLASH_HEAD_DIMS}, S >= 1, "
                          f"1 <= BH <= 65535)")
+    # the kernel copies 16-byte chunks (cp.async): a view that starts off
+    # that alignment is staged in a fresh tensor
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     fn = _kernel()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

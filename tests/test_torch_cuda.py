@@ -8,10 +8,16 @@ Marked ``cuda``; each skips without a CUDA device.  On the GPU machine:
 This file imports no JAX, so it runs where only the port is installed.
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 from repro_torch.kernels import bitplane_ops as bp  # noqa: E402
 from repro_torch.pim import cram  # noqa: E402
@@ -120,8 +126,9 @@ def test_quant_matmul_kernel_matches_plain(card, m, k, n, bits):
 
 
 @pytest.mark.parametrize("signed", [True, False], ids=["signed", "unsigned"])
-@pytest.mark.parametrize("ba,bw", [(8, 4), (4, 4), (4, 8), (1, 3)])
-@pytest.mark.parametrize("m,k,n", [(1, 4864, 70), (9, 288, 129)])
+@pytest.mark.parametrize("ba,bw", [(8, 4), (4, 4), (4, 8), (1, 3), (8, 8)])
+@pytest.mark.parametrize("m,k,n", [(1, 4864, 70), (9, 288, 129)] + [
+    (m, 32, n) for m in (1, 7, 8, 65) for n in (70, 129)])
 def test_popcount_matmul_kernel_matches_plain(card, m, k, n, ba, bw, signed):
     rng = np.random.default_rng(80 + ba + bw)
     a = _ints(rng, ba, signed, (m, k))
@@ -137,6 +144,27 @@ def test_popcount_matmul_kernel_matches_plain(card, m, k, n, ba, bw, signed):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   a.astype(np.int64) @ w.astype(np.int64))
+
+
+def test_popcount_matmul_kernel_wraps_like_plain(card):
+    """Unsigned A8W8 at K = 34816: the int32 sum of row 0 and column 0
+    (255 * 255 * K) passes 2**31 and wraps, bit-identical to the plain
+    version and to the exact product mod 2**32."""
+    rng = np.random.default_rng(85)
+    k = 34816
+    a = rng.integers(0, 256, (3, k))
+    w = rng.integers(0, 256, (k, 5))
+    a[0], w[:, 0] = 255, 255
+    ap = ops.pack_bitplanes(torch.from_numpy(a).to(card), 8, axis=1)
+    wp = ops.pack_bitplanes(torch.from_numpy(w).to(card), 8, axis=0)
+    got = bsm.popcount_matmul_cuda(ap, wp, a_signed=False, w_signed=False)
+    want = bsm.popcount_matmul_torch(ap, wp, a_signed=False, w_signed=False)
+    torch.cuda.synchronize()
+    exact = a.astype(np.int64) @ w.astype(np.int64)
+    assert exact[0, 0] >= 2 ** 31
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  exact.astype(np.uint32).view(np.int32))
 
 
 def test_gemm_kernels_reject_what_they_do_not_take(card):
@@ -161,7 +189,10 @@ def test_gemm_kernels_reject_what_they_do_not_take(card):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("bh,s,hd", [(14, 256, 64), (3, 1000, 128),
-                                     (2, 77, 32), (5, 9, 96), (4, 1, 64)])
+                                     (2, 77, 32), (5, 9, 96), (4, 1, 64),
+                                     (112, 1, 64)] + [
+    (2, s, hd) for s in (1, 63, 64, 65, 127, 1000)
+    for hd in (32, 64, 96, 128)])
 def test_flash_attention_kernel_matches_plain(card, bh, s, hd, causal,
                                               dtype):
     rng = np.random.default_rng(90)
@@ -174,10 +205,10 @@ def test_flash_attention_kernel_matches_plain(card, bh, s, hd, causal,
     want = fa.flash_attention_torch(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    # float32: the reference's 2e-4; bf16: one rounding of the output
-    tol = 2e-4 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                               rtol=tol)
+    # float32: the reference's 2e-4; bf16: the plain version's bf16 value
+    # or its neighbour, or within 1e-5
+    assert chip_smoke.flash_agrees(got, want), chip_smoke.flash_error(got,
+                                                                      want)
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(card):
@@ -191,6 +222,20 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         fa.flash_attention_cuda(q.transpose(0, 1), q.transpose(0, 1),
                                 q.transpose(0, 1))
+
+
+def test_flash_attention_kernel_takes_unaligned_views(card):
+    """Contiguous views that start off the kernel's 16-byte copies give
+    the plain version's output."""
+    rng = np.random.default_rng(91)
+    flat = [torch.from_numpy(rng.normal(0, 1, 2 * 70 * 64 + 1)
+                             .astype(np.float32)).to(card) for _ in range(3)]
+    q, k, v = (x[1:].view(2, 70, 64) for x in flat)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    got = fa.flash_attention_cuda(q, k, v, causal=True)
+    want = fa.flash_attention_torch(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert chip_smoke.flash_agrees(got, want)
 
 
 def test_pim_linear_on_card_runs_the_kernels(card):

@@ -26,6 +26,7 @@ from repro.pim import linear as jl  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import bitserial_matmul as bsm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.pim import linear as pl  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -280,44 +281,139 @@ def test_w4a8_error_over_dense_by_k(k, seed):
     assert (ref_ratio > 0.15) == (k > 896)
 
 
-def _flash_rounding(q, k, v, round_p=False, round_acc=False):
-    """The CUDA kernel's loop (32-key tiles from key 0, float32 state) in
-    torch, optionally with one of two faults a bf16 kernel could have:
-    ``p`` or the accumulator rounded to bf16."""
+def _tf32(x):
+    """``x`` rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _flash_rounding(q, k, v, round_p=False, round_acc=False, split_p=False,
+                    tf32_p=False, tile=32):
+    """A CUDA kernel's loop (key tiles of ``tile`` from key 0, float32
+    state) in torch, optionally with one of the ways a bf16 kernel can take
+    ``p`` into P.V: rounded to bf16 (``round_p``), split into bf16 hi + lo
+    and multiplied twice (``split_p``, the kernel's), or rounded to TF32
+    (``tf32_p``); or with the accumulator rounded to bf16 (``round_acc``)."""
     bh, s, hd = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
     m = torch.full((bh, s, 1), -1e30)
     l, acc = torch.zeros((bh, s, 1)), torch.zeros((bh, s, hd))
     rows = torch.arange(s)[:, None]
-    for t0 in range(0, s, 32):
-        sc = (qf @ kf[:, t0:t0 + 32].transpose(1, 2)) * hd ** -0.5
-        cols = torch.arange(t0, min(t0 + 32, s))[None]
+    for t0 in range(0, s, tile):
+        sc = (qf @ kf[:, t0:t0 + tile].transpose(1, 2)) * hd ** -0.5
+        cols = torch.arange(t0, min(t0 + tile, s))[None]
         sc = torch.where(cols <= rows, sc, -1e30)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         p, alpha = torch.exp(sc - m_new), torch.exp(m - m_new)
-        if round_p:
-            p = p.bfloat16().float()
+        vb = vf[:, t0:t0 + tile]
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p @ vf[:, t0:t0 + 32]
+        if split_p:
+            hi = p.bfloat16().float()
+            pv = (p - hi).bfloat16().float() @ vb + hi @ vb
+        else:
+            pv = (p.bfloat16().float() if round_p
+                  else _tf32(p) if tf32_p else p) @ vb
+        acc = acc * alpha + pv
         if round_acc:
             acc = acc.bfloat16().float()
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-@pytest.mark.parametrize("fault", [None, "round_p", "round_acc"])
+@pytest.mark.parametrize("fault", [None, "round_p", "round_acc", "split_p",
+                                   "tf32_p"])
 def test_smoke_bf16_flash_check_catches_bf16_rounding(fault):
-    """``chip_smoke.flash_agrees`` on bf16: the kernel's loop in float32
-    passes against the plain version (other tile size, other sum order);
-    the same loop rounding ``p`` or the accumulator to bf16 fails."""
+    """``chip_smoke.flash_agrees`` on bf16: a float32 loop over 32-key
+    tiles passes against the plain version (other tile size, other sum
+    order); the same loop rounding ``p`` or the accumulator to bf16 fails.
+    At the tensor-core kernel's 64-key tiles, ``p`` split into bf16 hi +
+    lo passes and ``p`` rounded to TF32 fails."""
     rng = np.random.default_rng(650)
     q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 512, 64))
                                 .astype(np.float32)).bfloat16()
                for _ in range(3))
     want = fa.flash_attention_torch(q, k, v)
     got = _flash_rounding(q, k, v, round_p=fault == "round_p",
-                          round_acc=fault == "round_acc")
-    assert chip_smoke.flash_agrees(got, want) == (fault is None)
+                          round_acc=fault == "round_acc",
+                          split_p=fault == "split_p",
+                          tf32_p=fault == "tf32_p",
+                          tile=64 if fault in ("split_p", "tf32_p") else 32)
+    assert chip_smoke.flash_agrees(got, want) == (fault in (None, "split_p"))
+
+
+def _tf32_matmul(a, b, terms):
+    """``a @ b`` as the TF32 tensor cores take it: ``hi.hi`` (1 term) or
+    ``lo.hi + hi.lo + hi.hi`` (3 terms), with ``x = hi + lo`` and both parts
+    rounded by :func:`_tf32`; products are exact in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _flash_tf32(q, k, v, terms, tile=64):
+    """The float32 kernel's loop (64-key tiles, causal) with both products
+    on TF32 tensor cores in ``terms`` terms."""
+    bh, s, hd = q.shape
+    m = torch.full((bh, s, 1), -1e30)
+    l, acc = torch.zeros((bh, s, 1)), torch.zeros((bh, s, hd))
+    rows = torch.arange(s)[:, None]
+    for t0 in range(0, s, tile):
+        sc = _tf32_matmul(q, k[:, t0:t0 + tile].transpose(1, 2), terms) \
+            * hd ** -0.5
+        cols = torch.arange(t0, min(t0 + tile, s))[None]
+        sc = torch.where(cols <= rows, sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p, alpha = torch.exp(sc - m_new), torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_matmul(p, v[:, t0:t0 + tile], terms)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
+@pytest.mark.parametrize("terms", [3, 1], ids=["3xtf32", "1xtf32"])
+def test_smoke_f32_flash_check_needs_3xtf32(terms):
+    """``chip_smoke.flash_agrees`` on float32 (``FLASH_F32_TOL``): the
+    kernel's loop with 3xTF32 products passes against the plain version,
+    with one TF32 product it fails."""
+    rng = np.random.default_rng(651)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 512, 64))
+                                .astype(np.float32)) for _ in range(3))
+    want = fa.flash_attention_torch(q, k, v)
+    got = _flash_tf32(q, k, v, terms)
+    assert chip_smoke.flash_agrees(got, want) == (terms == 3)
+
+
+@pytest.mark.parametrize("signed", [True, False], ids=["signed", "unsigned"])
+def test_popcount_kernel_operand_types_hold_every_value(signed):
+    """``csrc/popcount_matmul.cu`` unpacks a signed operand to s8 and an
+    unsigned one to u8: for 1..8 planes every value ``unpack_bitplanes``
+    gives fits that type, and the kernel's byte arithmetic (each nibble
+    of a plane word spread to the low bits of four bytes by one multiply,
+    times the plane's coefficient mod 256, summed over the planes) gives
+    each value's byte."""
+    dtype = np.int8 if signed else np.uint8
+    info = np.iinfo(dtype)
+    for bits in range(1, 9):
+        lo, hi = (-(1 << (bits - 1)), 1 << (bits - 1)) if signed \
+            else (0, 1 << bits)
+        x = np.resize(np.arange(lo, hi), max(32, hi - lo))
+        planes = kref.pack_bitplanes(torch.from_numpy(x)[None], bits, axis=1)
+        vals = kref.unpack_bitplanes(planes, axis=1, signed=signed).numpy()
+        np.testing.assert_array_equal(vals[0], x)
+        assert info.min <= vals.min() and vals.max() <= info.max
+        words = planes[:, 0].numpy().view(np.uint32).astype(np.uint64)
+        quads = np.zeros((words.shape[1], 8), np.uint64)
+        for p in range(bits):
+            coef = (0xFF << p) & 0xFF if signed and p == bits - 1 else 1 << p
+            for u in range(8):
+                nib = (words[p] >> np.uint64(4 * u)) & np.uint64(0xF)
+                quads[:, u] += ((nib * np.uint64(0x00204081))
+                                & np.uint64(0x01010101)) * np.uint64(coef)
+        assert quads.max() <= 0xFFFFFFFF          # no carry past a word
+        got = quads.astype("<u4").view(np.uint8).reshape(-1).view(dtype)
+        np.testing.assert_array_equal(got, x.astype(dtype))
 
 
 def test_bf16_steps_counts_representable_values():
