@@ -60,7 +60,7 @@ INT8_OPS_PER_S = 1979e12       # int8 tensor cores, dense
 
 #: kernels whose design runs on the tensor cores: the build phase fails
 #: when their SASS holds no tensor-core instruction
-TENSOR_CORE_KERNELS = ("popcount_matmul", "flash_attention")
+TENSOR_CORE_KERNELS = ("quant_matmul", "popcount_matmul", "flash_attention")
 
 
 def emit(obj):
@@ -192,9 +192,40 @@ def phase_kernel(rng):
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
              "shape": [m, lanes, words, width],
              "planes_given": planes_given, "bytes": nbytes, "ops": ops}
+    stats["sweep"] = fold_sweep(rng, planes_given, lanes, width, live)
     emit({"phase": "kernel_vs_plain", "ok": True, "shapes": len(shapes),
           **stats})
     return stats
+
+
+#: word columns of the fold sweep: the main path's 160 and both sides
+FOLD_SWEEP_WORDS = (1, 32, 160, 2048, 4096)
+
+
+def fold_sweep(rng, planes_given, lanes, width, live):
+    """The kernel against the plain tree on the card at the main path's
+    planes and lanes over :data:`FOLD_SWEEP_WORDS` word columns: both
+    graph times, bit for bit equal, and the widths at which the kernel
+    is the quicker (the question the TPU's ``PALLAS_FOLD_MIN_COLS``
+    answers there)."""
+    rows = []
+    m = max(live) + 1
+    for words in FOLD_SWEEP_WORDS:
+        planes = fold_inputs(rng, planes_given, lanes, words, set(live))
+        x = torch.stack(planes[:m])
+        got = bp.lane_fold(planes, width, packed=True)
+        want = bp.lane_fold_torch(planes, width)
+        torch.cuda.synchronize()
+        if not torch.equal(words_u64(got, words), words_u64(want, words)):
+            raise AssertionError(f"lane_fold kernel != plain at W={words}")
+        kern = graph_ms(lambda: bp.lane_fold_cuda(x, width))
+        plain = graph_ms(lambda: bp.lane_fold_torch(planes, width), reps=5)
+        nbytes = (m * lanes * words + width * words) * 4
+        rows.append({"words": words, "ms": kern, "plain_ms": plain,
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    return {"shape": [m, lanes, width], "rows": rows,
+            "kernel_quicker_at": [r["words"] for r in rows
+                                  if r["ms"] < r["plain_ms"]]}
 
 
 def phase_main_path(rng):
@@ -367,6 +398,33 @@ def gemm_shapes(cfg):
     return path + OTHER_GEMM_SHAPES
 
 
+def quant_more(rng, t, k, n):
+    """quant_matmul at one linear's (K, N) beside the W4, M = 128 time:
+    W8 at M = 128, and W4 at the decode step's M = 8 with
+    ``torch._int_mm`` on the same int8 operands where it takes them;
+    each checked bit for bit against the plain version first."""
+    out = {}
+    for label, m, bits in (("W8 M=128", TOKENS, 8), ("W4 M=8", DECODE_SEQS,
+                                                      4)):
+        a8 = t(signed_ints(rng, 8, (m, k)).astype(np.int8))
+        w = t(signed_ints(rng, bits, (k, n)).astype(np.int8))
+        st = t(rng.uniform(0.001, 0.1, n).astype(np.float32))
+        wp = kref.pack_bitplanes(w, bits, axis=0)
+        got = bsm.quant_matmul_cuda(a8, wp, st, bits=bits)
+        want = bsm.quant_matmul_torch(a8, wp, st, bits=bits)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"quant_matmul {label} at {(m, k, n)} "
+                                 f"!= plain")
+        nbytes, ops = gemm_work("quant_matmul", m, k, n, bw=bits)
+        lib, lib_err = try_timings(lambda: torch._int_mm(a8, w))
+        out[label] = {"shape": [m, k, n], "bits": bits,
+                      "ms": graph_ms(lambda: bsm.quant_matmul_cuda(
+                          a8, wp, st, bits=bits)),
+                      "library_ms": lib["ms"], "library_error": lib_err,
+                      "bound_ms": bound_ms(nbytes, ops, INT8_OPS_PER_S)[0]}
+    return out
+
+
 def phase_gemm(rng):
     """quant_matmul (W4, W8) and popcount_matmul (A8W4, A4W4, signed and
     unsigned) on the card == their plain versions == the ``ref`` oracles
@@ -483,6 +541,7 @@ def phase_gemm(rng):
             tt["library_error"] = tt["library_error"] or lib_err
             row[kind] = {**got, "bound_ms": bound_ms(nbytes, ops,
                                                      INT8_OPS_PER_S)[0]}
+        row["quant_matmul_more"] = quant_more(rng, t, k, n)
         per.append(row)
     for kind, tt in tot.items():
         tt["bound_ms"], tt["bound_by"] = bound_ms(tt["bytes"], tt["ops"],

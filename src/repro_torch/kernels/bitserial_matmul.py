@@ -6,9 +6,10 @@ The counterpart of ``repro.kernels.bitserial_matmul``.  Operands stay
 and are consumed packed (the "compute mode"):
 
 * :func:`quant_matmul` -- the performance path.  Packed int32 weight
-  planes are expanded to int8 inside the thread block and multiplied by
-  int8 activations with int32 accumulation, then scaled per output
-  channel (``csrc/quant_matmul.cu``).
+  planes are expanded to int8 in registers, as the A operand of the int8
+  tensor cores (``wgmma``), and multiplied by int8 activations with int32
+  accumulation, then scaled per output channel
+  (``csrc/quant_matmul.cu``).
 * :func:`popcount_matmul` -- the PIM-faithful path.  Both operands stay
   as bit planes and partial products are ``popcount(AND)`` per plane
   pair with power-of-two recombination.  The kernel computes the same
@@ -210,14 +211,15 @@ def quant_matmul_cuda(a, w_packed, scale_w, *, bits: int):
 
     ``a`` (M, K) int8, ``w_packed`` (bits, K/32, N) int32 words,
     ``scale_w`` (N,) float32, all contiguous on one CUDA device;
-    ``1 <= bits <= 8``.  Launches ``csrc/quant_matmul.cu`` on the
-    current stream (no sync) and counts it in
-    ``quant_matmul_cuda.launches``.
+    ``1 <= bits <= 8``; ``a`` starts on a 16-byte boundary (the kernel
+    copies its rows 16 bytes at a time).  Launches
+    ``csrc/quant_matmul.cu`` on the current stream (no sync) and counts
+    it in ``quant_matmul_cuda.launches``.
     """
     m, k, n = _check_quant(a, w_packed, scale_w, bits)
     _check_cuda("quant_matmul_cuda", a, w_packed, scale_w)
-    if a.data_ptr() % 4:
-        raise ValueError("quant_matmul_cuda needs a 4-byte aligned a")
+    if a.data_ptr() % 16:
+        raise ValueError("quant_matmul_cuda needs a 16-byte aligned a")
     fn = _quant_kernel()
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):

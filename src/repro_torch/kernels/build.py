@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so``
-beside this file; the hash covers the source and the flags, so an
-edited source never loads a stale library.  The kernels' wrappers load
+beside this file; the hash covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header never
+loads a stale library.  The kernels' wrappers load
 the libraries with ``ctypes`` on first use.  :func:`build_all` starts
 one ``nvcc`` per source, all at once.
 """
@@ -41,8 +42,11 @@ def nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    """The library path for ``csrc/<name>.cu`` at its current content."""
+    """The library path for ``csrc/<name>.cu`` at its current content and
+    that of the headers beside it."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -51,27 +51,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 #define FA_ROWS 64  // query rows per block, 16 per warp
 #define FA_KEYS 64  // keys per tile
 #define FA_THREADS 128
 #define FA_NEG_INF (-1e30f)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -196,20 +181,9 @@ struct FaTile {
 // every block 1024-byte aligned.
 #define WG_BLOCK 8192  // bytes of one 64 x 64 bf16 block
 
-// descriptor of a 128B-swizzled operand at shared address a: start
-// address, leading byte offset 16 (unused by these layouts), stride byte
-// offset 1024 (between 8-row groups), layout 1 = 128-byte swizzle
-__device__ __forceinline__ uint64_t wg_desc(uint32_t a) {
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
 __device__ __forceinline__ void wg_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wg_commit();
+  wg_wait<0>();
 }
 // after wgmma.wait_group: reads of d stay below it
 __device__ __forceinline__ void wg_settle(float (&d)[8][4]) {
@@ -549,25 +523,15 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-// Launch `kernel` with `smem` bytes of dynamic shared memory, which needs
-// the attribute above 48 KB.  The attribute holds per device: `set[dev]`
-// records, for this kernel, the devices it was set on.
-#define FA_MAX_DEVICES 64
+// Launch `kernel` with `smem` bytes of dynamic shared memory; `set`
+// records the devices its attribute was set on.
 template <typename T, typename K>
-static int launch_kernel(K* kernel, bool (&set)[FA_MAX_DEVICES], int smem,
-                         const void* q, const void* k, const void* v, void* o,
-                         int bh, int S, float scale, int causal,
-                         cudaStream_t st) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= FA_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (!set[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    set[dev] = true;
-  }
+static int launch_kernel(K* kernel, bool (&set)[HOPPER_MAX_DEVICES],
+                         int smem, const void* q, const void* k,
+                         const void* v, void* o, int bh, int S, float scale,
+                         int causal, cudaStream_t st) {
+  const int e = smem_attribute_once(kernel, set, smem);
+  if (e != 0) return e;
   const unsigned blocks = (unsigned)bh * ((S + FA_ROWS - 1) / FA_ROWS);
   kernel<<<blocks, FA_THREADS, smem, st>>>((const T*)q, (const T*)k,
                                            (const T*)v, (T*)o, bh, S, scale,
@@ -579,7 +543,8 @@ template <int HD>
 static int launch_hd(int dtype, const void* q, const void* k, const void* v,
                      void* o, int bh, int S, float scale, int causal,
                      cudaStream_t st) {
-  static bool set_f32[FA_MAX_DEVICES] = {}, set_bf16[FA_MAX_DEVICES] = {};
+  static bool set_f32[HOPPER_MAX_DEVICES] = {},
+              set_bf16[HOPPER_MAX_DEVICES] = {};
   if (dtype == 0)
     return launch_kernel<float>(flash_attention_f32<HD>, set_f32,
                                 TfLayout<HD>::BYTES, q, k, v, o, bh, S, scale,

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 #define PC_MAX_PLANES 8
 #define PC_BM 64
 #define PC_BN 64
@@ -50,7 +52,6 @@
 #define PC_WN 2                      // warps along N (32 columns each)
 #define PC_THREADS (32 * PC_WM * PC_WN)
 #define PC_ROW (PC_KC * 32 + 16)     // bytes per unpacked row, 16 pad
-#define PC_MAX_DEVICES 64
 #define PC_MIN_SPLIT_WORDS PC_KC     // least K words per split
 // one A item (row, word) and one W item (word, column) of a stage a thread
 static_assert(PC_THREADS == PC_BM * PC_KC && PC_THREADS == PC_BN * PC_KC,
@@ -80,12 +81,6 @@ __device__ __forceinline__ void mma_i8(int (&d)[4], const uint32_t (&a)[4],
 #undef PC_MMA
 }
 
-// coefficient of plane p mod 256: 2^p, or -2^p for the top plane of a
-// signed operand (its byte sign-extends the value)
-__device__ __forceinline__ uint32_t plane_coef(int p, int planes, bool sgn) {
-  return (sgn && p == planes - 1) ? ((0xFFu << p) & 0xFFu) : (1u << p);
-}
-
 // the 32 K-bytes of one packed (row, word) from its planes' words; byte
 // 4u + i of out is element 4u + i of the word (little-endian)
 __device__ __forceinline__ void unpack32(const uint32_t (&w)[PC_MAX_PLANES],
@@ -99,7 +94,7 @@ __device__ __forceinline__ void unpack32(const uint32_t (&w)[PC_MAX_PLANES],
     const uint32_t c = plane_coef(p, planes, sgn);
 #pragma unroll
     for (int u = 0; u < 8; ++u)  // nibble u -> low bit of 4 bytes, times c
-      out[u] += (((w[p] >> (4 * u)) & 0xFu) * 0x00204081u & 0x01010101u) * c;
+      out[u] += spread4(w[p] >> (4 * u)) * c;
   }
 }
 
@@ -205,21 +200,12 @@ extern "C" int popcount_matmul_launch(const void* ap, const void* wp,
       N < 1 || KW < 1 || (M + PC_BM - 1) / PC_BM > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  // the current device's SM count, read once per device
-  static int sms_of[PC_MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int sms = 0;
+  cudaError_t e = (cudaError_t)device_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  if (dev < 0 || dev >= PC_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if (sms_of[dev] == 0) {
-    int sms = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    sms_of[dev] = sms;
-  }
   const int tiles = ((N + PC_BN - 1) / PC_BN) * ((M + PC_BM - 1) / PC_BM);
   // split K until two blocks per SM, each split >= PC_MIN_SPLIT_WORDS
-  int split = (2 * sms_of[dev] + tiles - 1) / tiles;
+  int split = (2 * sms + tiles - 1) / tiles;
   split = max(1, min(split, KW / PC_MIN_SPLIT_WORDS));
   int words = (KW + split - 1) / split;
   words = (words + PC_KC - 1) / PC_KC * PC_KC;  // whole stages

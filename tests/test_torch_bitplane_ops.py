@@ -8,7 +8,9 @@ card (``test_torch_cuda.py``); here the dispatch rule and the wrapper's
 refusal of CPU tensors are checked.
 """
 
+import re
 from itertools import product
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -201,3 +203,106 @@ def test_lane_fold_cuda_refuses_cpu_and_bad_inputs():
         bp.lane_fold_cuda(x, 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         bp.lane_fold_cuda(x.to("meta"), 3)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's lane-group partition and tree, emulated on the CPU
+# ---------------------------------------------------------------------------
+_LANE_FOLD_CU = Path(bp.__file__).with_name("csrc") / "lane_fold.cu"
+
+
+def _cu_defines(path):
+    """Integer ``#define NAME value`` lines of a CUDA source."""
+    return {k: int(v) for k, v in re.findall(
+        r"^#define (\w+) (\d+)\b", path.read_text(), flags=re.M)}
+
+
+def _lane_fold_buckets():
+    """(accumulator planes, lanes loaded ahead) of each kernel
+    instantiation the launch picks from, narrowest first."""
+    return sorted((int(a), int(b)) for a, b in re.findall(
+        r"lane_fold_kernel<(\d+), (\d+)>", _LANE_FOLD_CU.read_text()))
+
+
+def _ripple_add(acc, b, width):
+    """The kernel's ``ripple_add``: acc += b over planes [0, width)."""
+    c = np.zeros_like(acc[0])
+    for i in range(width):
+        a = acc[i].copy()
+        axb = a ^ b[i]
+        acc[i] = axb ^ c
+        c = (a & b[i]) | (c & axb)
+
+
+def _emulate_lane_fold_kernel(x, width, visits=None):
+    """``lane_fold_kernel`` on numpy words, block by block and thread by
+    thread: group g of a block takes lanes g, g + G, ... in batches of
+    LB, then the groups meet in the shared-memory tree.  ``visits``
+    (T, W) counts the (lane, column) loads."""
+    d = _cu_defines(_LANE_FOLD_CU)
+    G, WB = d["LF_GROUPS"], d["LF_WORDS"]
+    maxw, lb = next(b for b in _lane_fold_buckets() if b[0] >= width)
+    m, lanes, words = x.shape
+    out = np.zeros((width, words), np.uint32)
+    for blk in range(-(-words // WB)):
+        cols = blk * WB + np.arange(WB)
+        live = cols < words
+        xb = np.zeros((m, lanes, WB), np.uint32)
+        xb[:, :, live] = x[:, :, cols[live]]
+        acc = np.zeros((G, maxw, WB), np.uint32)
+        for grp in range(G):
+            for t0 in range(grp, lanes, lb * G):
+                batch = [t0 + j * G for j in range(lb) if t0 + j * G < lanes]
+                b = np.zeros((len(batch), maxw, WB), np.uint32)
+                for j, t in enumerate(batch):
+                    b[j, :m] = xb[:, t]
+                    if visits is not None:
+                        visits[t, cols[live]] += 1
+                for j in range(len(batch)):
+                    _ripple_add(acc[grp], b[j], width)
+        h = 1
+        while 2 * h < min(lanes, G):
+            h *= 2
+        if lanes == 1:
+            h = 0
+        while h >= 1:
+            part = acc[h:2 * h].copy()            # the upper half hands down
+            for grp in range(h):
+                _ripple_add(acc[grp], part[grp], width)
+            h //= 2
+        out[:, cols[live]] = acc[0, :width][:, live]
+    return out
+
+
+@pytest.mark.parametrize("top", [False, True], ids=["rand", "bit31"])
+@pytest.mark.parametrize("m,lanes,words,width", [
+    (8, 57, 160, 15), (8, 25, 160, 15),            # the main path's folds
+    (3, 1, 9, 5), (4, 2, 8, 4), (5, 31, 17, 12), (6, 33, 3, 6),
+    (8, 70, 5, 8), (32, 40, 9, 32), (2, 100, 11, 20), (1, 65, 1, 1)])
+def test_lane_fold_kernel_partition_and_tree(m, lanes, words, width, top):
+    """The kernel's lane groups cover every lane of every column once,
+    and its tree of group partials gives lane_fold_torch's planes and
+    the reference's lane_fold_jnp, on ragged T and W, m < width, every
+    width bucket, and bit 31 set."""
+    x, planes = _fold_inputs(m, lanes, words, width, seed=lanes + words,
+                             top=top)
+    visits = np.zeros((lanes, words), np.int64)
+    got = _emulate_lane_fold_kernel(x, width, visits)
+    assert (visits == 1).all()
+    want = bp.lane_fold_torch([_t(p) for p in planes], width)
+    jwant = ref_bp.lane_fold_jnp([jnp.asarray(p) for p in planes], width)
+    for i in range(width):
+        np.testing.assert_array_equal(got[i], _u(want[i], words))
+        np.testing.assert_array_equal(
+            got[i], np.zeros(words, np.uint32) if jwant[i] is None
+            else np.asarray(jwant[i]))
+
+
+def test_lane_fold_kernel_constants_match_the_wrapper():
+    """The wrapper's widest fold is the kernel's, and every width up to
+    it has an instantiation."""
+    d = _cu_defines(_LANE_FOLD_CU)
+    assert d["LANE_FOLD_MAX_WIDTH"] == bp.LANE_FOLD_MAX_WIDTH
+    buckets = _lane_fold_buckets()
+    assert buckets[-1][0] == bp.LANE_FOLD_MAX_WIDTH
+    assert d["LF_GROUPS"] & (d["LF_GROUPS"] - 1) == 0   # a power of two

@@ -66,6 +66,37 @@ def test_lane_fold_kernel_matches_plain(card, m, lanes, words, width, live,
         np.testing.assert_array_equal(_words(g, words), _words(w, words))
 
 
+#: (m planes read, width, bit 31 forced) of the edge sweep: the main
+#: path's 8 of 15, the widest fold, and m well below width
+_FOLD_EDGE_CASES = {"m8w15": (8, 15, False), "m32w32bit31": (32, 32, True),
+                    "m3w20": (3, 20, False)}
+
+
+@pytest.mark.parametrize("case", sorted(_FOLD_EDGE_CASES))
+@pytest.mark.parametrize("words", [1, 32, 33, 160, 4096])
+@pytest.mark.parametrize("lanes", [1, 2, 31, 33, 57, 1000])
+def test_lane_fold_kernel_edges(card, lanes, words, case):
+    """The lane-group partition and the group tree at their edges: one
+    lane, fewer lanes than groups, a ragged last group, many batches;
+    one word column, a ragged last block, many blocks; every width
+    bucket.  Bit-identical to the plain tree."""
+    m, width, top = _FOLD_EDGE_CASES[case]
+    gen = torch.Generator(device=card).manual_seed(lanes * 7919 + words)
+    x = torch.randint(-2 ** 31, 2 ** 31, (m, lanes, words),
+                      dtype=torch.int32, device=card, generator=gen)
+    if top:
+        x |= -2 ** 31
+    before = bp.lane_fold_cuda.launches
+    got = bp.lane_fold_cuda(x, width)
+    assert bp.lane_fold_cuda.launches == before + 1
+    zero = torch.zeros(words, dtype=torch.int32, device=card)
+    want = torch.stack([zero if p is None else p
+                        for p in bp.lane_fold_torch(list(x), width)])
+    torch.cuda.synchronize()
+    assert got.shape == (width, words)
+    assert torch.equal(got, want)
+
+
 def test_lane_fold_kernel_rejects_what_it_does_not_take(card):
     x = torch.zeros((3, 4, 5), dtype=torch.int32, device=card)
     with pytest.raises(TypeError):
@@ -125,6 +156,57 @@ def test_quant_matmul_kernel_matches_plain(card, m, k, n, bits):
     np.testing.assert_array_equal(got.cpu().numpy(), exact)
 
 
+def _quant_on_card(card, m, k, n, bits, seed):
+    """The kernel, the plain version and the exact product (float64 on the
+    card: every partial sum is an integer below 2**53) on seeded inputs;
+    asserts that all three agree bit for bit."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=card,
+                      generator=gen)
+    w = torch.randint(-(1 << (bits - 1)), 1 << (bits - 1), (k, n),
+                      dtype=torch.int32, device=card, generator=gen)
+    scale = torch.rand(n, device=card, generator=gen) * 0.099 + 0.001
+    wp = ops.pack_bitplanes(w, bits, axis=0)
+    before = bsm.quant_matmul_cuda.launches
+    got = bsm.quant_matmul_cuda(a, wp, scale, bits=bits)
+    assert bsm.quant_matmul_cuda.launches == before + 1
+    want = bsm.quant_matmul_torch(a, wp, scale, bits=bits)
+    exact = (a.double() @ w.double()).to(torch.int64).to(torch.float32) \
+        * scale[None, :]
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), exact.view(torch.int32))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n", [1, 8, 130, 4864])
+@pytest.mark.parametrize("k", [32, 96, 896, 4864])
+@pytest.mark.parametrize("m", [1, 7, 8, 64, 65, 128, 129, 256])
+def test_quant_matmul_kernel_tiles(card, m, k, n, bits):
+    """Every token tile (8, 64, 128 and ragged ones), one to many weight
+    tiles with a ragged last one, K from one word to 152, and the split
+    of K that the tile count picks, against the plain version and the
+    exact product."""
+    _quant_on_card(card, m, k, n, bits, seed=m * 10007 + k * 31 + n + bits)
+
+
+@pytest.mark.parametrize("bits", range(1, 9))
+@pytest.mark.parametrize("m,k,n", [(7, 96, 130), (129, 896, 8),
+                                   (8, 4864, 130)])
+def test_quant_matmul_kernel_every_width(card, m, k, n, bits):
+    _quant_on_card(card, m, k, n, bits, seed=500 + bits)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 416, 64), (1, 1184, 130),
+                                   (128, 416, 896), (8, 928, 4864)])
+def test_quant_matmul_kernel_ragged_split(card, m, k, n):
+    """K words that the split does not divide (13 and 37 words over a
+    split of 8 at one, three and 14 tiles; 29 over 4 at 76 tiles, on a
+    card of 132 SMs), so the parts differ in length."""
+    _quant_on_card(card, m, k, n, 4, seed=600 + k)
+
+
 @pytest.mark.parametrize("signed", [True, False], ids=["signed", "unsigned"])
 @pytest.mark.parametrize("ba,bw", [(8, 4), (4, 4), (4, 8), (1, 3), (8, 8)])
 @pytest.mark.parametrize("m,k,n", [(1, 4864, 70), (9, 288, 129)] + [
@@ -178,6 +260,11 @@ def test_gemm_kernels_reject_what_they_do_not_take(card):
                               .transpose(1, 2), s, bits=4)   # strided
     with pytest.raises(ValueError):
         bsm.quant_matmul_cuda(a, wp, s, bits=9)
+    raw = torch.zeros(4 * 64 + 16, dtype=torch.int8, device=card)
+    for off in (1, 4, 8):                     # not on a 16-byte boundary
+        with pytest.raises(ValueError, match="16-byte"):
+            bsm.quant_matmul_cuda(raw[off:off + 256].view(4, 64), wp, s,
+                                  bits=4)
     with pytest.raises(TypeError):
         bsm.popcount_matmul_cuda(wp.to(torch.int64), wp)
     with pytest.raises(ValueError):

@@ -7,6 +7,9 @@ words, quantization codes and scales, and GEMM results must be
 bit-identical; attention agrees within 2e-4, the reference's tolerance.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -130,6 +133,192 @@ def test_quant_matmul_out_dtype_and_checks():
         ops.quant_matmul(a, wp, torch.ones(7), bits=4)
     with pytest.raises(TypeError):
         ops.quant_matmul(a.to(torch.int32), wp, s, bits=4)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul's CUDA kernel, emulated on the CPU: the unpack of packed
+# words into wgmma's register A fragments, the split of K over a cluster,
+# the staged partial tiles and the cluster's reduction
+# ---------------------------------------------------------------------------
+_QM_CU = Path(bsm.__file__).with_name("csrc") / "quant_matmul.cu"
+
+
+def _qm_defines():
+    return {k: int(v) for k, v in re.findall(
+        r"^#define (\w+) (\d+)\b", _QM_CU.read_text(), flags=re.M)}
+
+
+def _qm_token_tile(m):
+    """The token tile (wgmma's N) the launch picks for M rows."""
+    src = _QM_CU.read_text()
+    for limit, tile in re.findall(
+            r"if \(M <= (\d+)\) return launch_bits<(\d+)>", src):
+        if m <= int(limit):
+            return int(tile)
+    return int(re.findall(r"\n  return launch_bits<(\d+)>", src)[-1])
+
+
+def _qm_split(tiles, kw, sms, per_sm, max_split):
+    """The launch's split of K: ``per_sm`` blocks an SM, at most
+    ``max_split`` (one cluster) and at most one part per word."""
+    return max(1, min(-(-(per_sm * sms) // tiles), max_split, kw))
+
+
+def _spread4(x):
+    """The kernel's ``spread4``: bit i of the low nibble -> bit 0 of byte
+    i (one multiply)."""
+    return ((x & np.uint32(0xF)) * np.uint32(0x00204081)) \
+        & np.uint32(0x01010101)
+
+
+def _emulate_quant_matmul_kernel(a, wp, scale, bits, sms, cover):
+    """``quant_matmul_kernel`` on numpy arrays, thread by thread where the
+    kernel's index arithmetic lives.  Each thread's A fragment registers
+    are unpacked as the kernel does; the m16n8k32 fragment layout the
+    tensor core gives each (register, byte) places them in W^T, whose
+    product with the token tile accumulates in int32; the C layout and
+    the kernel's store indices stage each block's partial tile, and the
+    cluster's blocks sum their shares.  ``cover`` (M, N) counts the
+    stores of each output element."""
+    d = _qm_defines()
+    bn, sw, nthr = d["QM_BN"], d["QM_STAGE_WORDS"], d["QM_THREADS"]
+    m, k = a.shape
+    n = wp.shape[2]
+    kw = k // 32
+    mt = _qm_token_tile(m)
+    ntiles, mtiles = -(-n // bn), -(-m // mt)
+    split = _qm_split(ntiles * mtiles, kw, sms, d["QM_BLOCKS_PER_SM"],
+                      d["QM_MAX_SPLIT"])
+    warp, lane = np.divmod(np.arange(nthr), 32)
+    g, t = lane // 4, lane % 4
+    r0 = 16 * warp + g
+    # f[q][j]: (weight column, nibble shift) of register j, as unpacked
+    rows, shifts = (r0, r0 + 8, r0, r0 + 8), (4 * t, 4 * t, 16 + 4 * t,
+                                              16 + 4 * t)
+    coefs = [np.uint32((0xFF << b) & 0xFF if b == bits - 1 else 1 << b)
+             for b in range(bits)]
+    out = np.zeros((m, n), np.float32)
+    for nt in range(ntiles):
+        n0 = nt * bn
+        nv = min(bn, n - n0)
+        for mi in range(mtiles):
+            m0 = mi * mt
+            mv = min(mt, m - m0)
+            parts = []
+            for z in range(split):
+                kw0, kw1 = kw * z // split, kw * (z + 1) // split
+                acc = np.zeros((bn, mt), np.int64)
+                for s in range(-(-(kw1 - kw0) // sw)):
+                    c0 = kw0 + s * sw
+                    for q in range(min(sw, kw1 - c0)):
+                        words = np.zeros((bits, bn), np.uint32)
+                        words[:, :nv] = wp[:, c0 + q, n0:n0 + nv]
+                        regs = np.zeros((nthr, 4), np.uint32)
+                        for b in range(bits):
+                            for j in range(4):
+                                regs[:, j] += _spread4(
+                                    words[b, rows[j]] >> shifts[j].astype(
+                                        np.uint32)) * coefs[b]
+                        byte = regs.view(np.uint8).reshape(nthr, 4, 4) \
+                            .view(np.int8)
+                        fa_ = np.zeros((bn, 32), np.int64)
+                        hits = np.zeros((bn, 32), np.int64)
+                        for j in range(4):       # m16n8k32's A layout
+                            for i in range(4):
+                                row = 16 * warp + g + 8 * (j & 1)
+                                col = 4 * t + i + 16 * (j >> 1)
+                                fa_[row, col] = byte[:, j, i]
+                                hits[row, col] += 1
+                        assert (hits == 1).all()
+                        tok = np.zeros((32, mt), np.int64)
+                        word = c0 + q
+                        tok[:, :mv] = a[m0:m0 + mv,
+                                        32 * word:32 * word + 32].T
+                        acc += fa_ @ tok
+                part = np.full((mt, bn), -1, np.int64)
+                for j in range(mt // 8):
+                    for e in range(4):
+                        row = 16 * warp + g + 8 * (e >> 1)   # C layout
+                        col = 8 * j + 2 * t + (e & 1)
+                        part[8 * j + 2 * t + (e & 1), r0 + 8 * (e >> 1)] = \
+                            acc[row, col]
+                parts.append(part)
+            quads = bn // 4                 # 4 columns of one token
+            for rank in range(split):
+                idx = (np.arange(rank * nthr, mt * quads,
+                                 nthr * split)[:, None]
+                       + np.arange(nthr)[None, :]).ravel()
+                idx = idx[idx < mt * quads]
+                tok, quad = np.divmod(idx, quads)
+                tok = np.repeat(tok, 4)
+                col = (4 * quad[:, None] + np.arange(4)[None, :]).ravel()
+                ok = (m0 + tok < m) & (n0 + col < n)
+                tok, col = tok[ok], col[ok]
+                tot = sum(p[tok, col] for p in parts)
+                tot = ((tot + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+                out[m0 + tok, n0 + col] = tot.astype(np.float32) \
+                    * scale[n0 + col]
+                np.add.at(cover, (m0 + tok, n0 + col), 1)
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,bits,sms", [
+    (5, 64, 70, 4, 132), (16, 96, 130, 8, 132), (1, 32, 1, 1, 132),
+    (9, 160, 64, 3, 2), (129, 416, 40, 5, 132), (70, 288, 96, 2, 4),
+    (8, 1184, 70, 6, 132), (3, 128, 33, 7, 1)])
+def test_quant_matmul_kernel_unpack_map(m, k, n, bits, sms):
+    """The kernel's unpack map, split of K (ragged parts: 5 words over 4,
+    13 over 8, 9 over 4, 37 over 8), partial tiles and cluster reduction,
+    emulated: bit-identical to quant_matmul_torch, the JAX Pallas
+    kernel (interpret mode) and the exact product, every output stored
+    once."""
+    rng = np.random.default_rng(320 + bits)
+    a = _ints(rng, 8, True, (m, k)).astype(np.int8)
+    w = _ints(rng, bits, True, (k, n)).astype(np.int8)
+    scale = rng.uniform(0.001, 0.1, n).astype(np.float32)
+    wp = np.asarray(jref.pack_bitplanes(jnp.asarray(w), bits, axis=0))
+    cover = np.zeros((m, n), np.int64)
+    got = _emulate_quant_matmul_kernel(a, wp, scale, bits, sms, cover)
+    assert (cover == 1).all()
+    plain = bsm.quant_matmul_torch(_t(a), _u32(wp), _t(scale), bits=bits)
+    jgot = np.asarray(jops.quant_matmul(jnp.asarray(a), jnp.asarray(wp),
+                                        jnp.asarray(scale), bits=bits,
+                                        interpret=True))
+    exact = (a.astype(np.int64) @ w.astype(np.int64)).astype(np.float32) \
+        * scale[None, :]
+    for x in (plain.numpy(), jgot, exact):
+        np.testing.assert_array_equal(got.view(np.uint32), x.view(np.uint32))
+
+
+def test_quant_matmul_kernel_constants():
+    """The kernel's widest plane count is the wrapper's, a stage is one
+    128-byte row of int8 activations, one warpgroup owns wgmma's 64
+    rows, and a split fits a portable cluster."""
+    d = _qm_defines()
+    assert d["QM_MAX_BITS"] == bsm.MAX_PLANES
+    assert d["QM_STAGE_WORDS"] * 32 == 128
+    assert d["QM_BN"] == 64 and d["QM_THREADS"] == 128
+    assert 1 <= d["QM_MAX_SPLIT"] <= 8
+    assert [_qm_token_tile(x) for x in (1, 8, 9, 64, 65, 128, 129)] == \
+        [8, 8, 64, 64, 128, 128, 128]
+
+
+def test_build_target_tracks_sources_and_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every shared header, so an
+    edit to either builds a new library instead of loading a stale one;
+    the shared header is beside the sources the build compiles."""
+    from repro_torch.kernels import build
+    assert (build.CSRC / "hopper.cuh").is_file()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    first = build.target("k")
+    assert build.target("k") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = build.target("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n// edit\n')
+    assert build.target("k") not in (first, second)
 
 
 @pytest.mark.parametrize("signed", [True, False], ids=["signed", "unsigned"])
