@@ -17,7 +17,15 @@ through their public entry points:
   between them) through ``linear_apply`` / ``fused_linear_apply`` in
   modes ``pallas`` (``quant_matmul``) and ``popcount``
   (``popcount_matmul``) and ``flash_attention``, on 128 tokens and on a
-  decode step of 8.
+  decode step of 8;
+* the fabric: the same seven linears of layer 0 on 8 decode tokens
+  through ``fused_linear_apply`` with ``PimConfig(mode="fabric")`` at
+  W4A4 (every round launch of 512 blocks folds through ``lane_fold``);
+  ``fabric_matmul`` at int4, int8 and bf16, a ``FabricSession`` decode
+  loop and a ``FabricAttentionBlock`` head with KV appends; the fault
+  hooks (parity scrub, spare-block repair); the fuzz corpus and a fuzz
+  budget through every executor variant; and the packed against the
+  bool interior on 512-block launches.
 
 Every result is checked exactly against numpy or the port's oracles, or
 within a stated tolerance.  Prints one JSON object per phase, the card's
@@ -29,6 +37,8 @@ is present or a phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -41,15 +51,18 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (engine, floatprog, harness,  # noqa: E402
-                              programs, ref)
+from repro_torch.core import (engine, faults, floatprog,  # noqa: E402
+                              fuzz, harness, programs, ref)
 from repro_torch.kernels import bitplane_ops as bp  # noqa: E402
 from repro_torch.kernels import bitserial_matmul as bsm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.pim import cram  # noqa: E402
+from repro_torch.pim import fabric  # noqa: E402
 from repro_torch.pim import linear as pl  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit non-tensor-core peak (data sheet)
@@ -193,9 +206,44 @@ def phase_kernel(rng):
              "shape": [m, lanes, words, width],
              "planes_given": planes_given, "bytes": nbytes, "ops": ops}
     stats["sweep"] = fold_sweep(rng, planes_given, lanes, width, live)
+    stats["fabric_shape"] = fold_at_fabric_shape(rng)
     emit({"phase": "kernel_vs_plain", "ok": True, "shapes": len(shapes),
           **stats})
     return stats
+
+
+#: the fabric's round launch at W4A4 on the default grid: ``idot4x58``
+#: on 512 blocks of 40 columns folds 8 live of 15 planes over 57 lanes
+#: of 640 word columns
+FABRIC_FOLD = (15, 57, 640, 15, range(8))
+
+
+def fold_at_fabric_shape(rng):
+    """lane_fold at the fabric's launch shape: bit for bit equal to the
+    plain tree, both graph times and the kernel's byte bound."""
+    planes_given, lanes, words, width, live = FABRIC_FOLD
+    planes = fold_inputs(rng, planes_given, lanes, words, set(live))
+    got = bp.lane_fold(planes, width, packed=True)
+    want = bp.lane_fold_torch(planes, width)
+    torch.cuda.synchronize()
+    err = int((words_u64(got, words) - words_u64(want, words))
+              .abs().max().item())
+    if err:
+        raise AssertionError(f"lane_fold kernel != plain at the fabric's "
+                             f"shape: max abs diff {err}")
+    m = max(live) + 1
+    x = torch.stack(planes[:m])
+    kern = timings(lambda: bp.lane_fold_cuda(x, width))
+    plain = timings(lambda: bp.lane_fold_torch(planes, width), reps=10,
+                    graph_reps=5)
+    nbytes = (m * lanes * words + width * words) * 4
+    ops = (5 * m + 2 * (width - m)) * lanes * words
+    bms, bby = bound_ms(nbytes, ops, INT32_OPS_PER_S)
+    return {"shape": [m, lanes, words, width], "planes_given": planes_given,
+            "max_abs_err": err, "ms": kern["ms"],
+            "event_ms": kern["event_ms"], "plain_ms": plain["ms"],
+            "plain_event_ms": plain["event_ms"], "bound_ms": bms,
+            "bound_by": bby, "bytes": nbytes, "ops": ops}
 
 
 #: word columns of the fold sweep: the main path's 160 and both sides
@@ -870,6 +918,418 @@ def phase_flash(rng):
     return out["variants"]["float32 causal=True"]
 
 
+# ---------------------------------------------------------------------------
+# The fabric: its execute side, fault hooks and fuzz replay
+# ---------------------------------------------------------------------------
+#: layer 0's linears as the fabric runs them: each group is one fused
+#: fabric program sharing its input
+FABRIC_GROUPS = (("q+k+v", ("q", "k", "v")), ("o", ("o",)),
+                 ("gate+up", ("gate", "up")), ("down", ("down",)))
+
+
+class FabricCalls:
+    """While active, records every ``fabric.fabric_fused_matmul`` call:
+    its quantized operands and its result (schedule, raw accumulators),
+    so a phase can check what the PIM linear layer handed the fabric.
+    It swaps the module attribute, which ``pim/linear.py`` looks up at
+    each call; a phase that expects a call and finds none fails."""
+
+    def __enter__(self):
+        self.calls = []
+        self._orig = fabric.fabric_fused_matmul
+
+        def recorded(x, ws, *args, **kw):
+            res = self._orig(x, ws, *args, **kw)
+            self.calls.append((np.asarray(x), [np.asarray(w) for w in ws],
+                               res))
+            return res
+
+        fabric.fabric_fused_matmul = recorded
+        return self
+
+    def __exit__(self, *exc):
+        fabric.fabric_fused_matmul = self._orig
+
+
+def scheduled_launches(sched):
+    """The ``execute_blocks`` launches that ``fabric.execute_program``
+    makes for ``sched`` at its defaults: with the compiled executor,
+    consecutive rounds of one dtype class (and, for floats, one K stage)
+    batch into launches of ``MAX_BATCH_BLOCKS // n_compute`` rounds;
+    otherwise each round is one launch."""
+    rounds = sched.rounds
+    if sched.cfg.executor != "compiled" or len(rounds) <= 1:
+        return len(rounds)
+    primary = sched.classes[0]
+
+    def stage(rnd):
+        c = rnd.dtype or primary
+        if fabric._dtype_info(c).is_float and rnd.tasks:
+            return c, rnd.tasks[0].k0
+        return c, None
+
+    per = max(fabric.MAX_BATCH_BLOCKS, sched.n_compute) // sched.n_compute
+    runs = [len(list(g)) for _, g in itertools.groupby(map(stage, rounds))]
+    return sum(-(-r // per) for r in runs)
+
+
+def launches_of(run, sched_of=lambda res: res.schedule):
+    """``(result, execute_blocks launches, seconds)`` of ``run()``.  The
+    count is :func:`scheduled_launches` of the result's schedule, held
+    equal to the engine compile cache's lookups in the run (one lookup
+    per ``execute_blocks`` call)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() \
+        else (lambda: None)
+    sync()
+    c0 = engine.compile_cache_stats()
+    t0 = time.perf_counter()
+    out = run()
+    sync()
+    wall = time.perf_counter() - t0
+    c1 = engine.compile_cache_stats()
+    looked_up = (c1["hits"] + c1["misses"]) - (c0["hits"] + c0["misses"])
+    launches = scheduled_launches(sched_of(out))
+    if looked_up != launches:
+        raise AssertionError(f"{launches} launches scheduled, "
+                             f"{looked_up} compiled fns looked up")
+    return out, launches, wall
+
+
+def phase_fabric_layer(seed, dev=None, cfg=None, fabric_cfg=None):
+    """The fabric's main path: the seven linears of qwen2-0.5b's layer 0
+    at their published widths, on ``DECODE_SEQS`` decode tokens, through
+    ``fused_linear_apply`` with ``PimConfig(mode="fabric")`` at W4A4 on
+    the default grid (one fused program per group of
+    :data:`FABRIC_GROUPS`).  Every output bit-identical to mode ``ref``
+    on the same params and input; every raw fabric accumulator equal to
+    numpy's int64 product of the quantized operands; ``lane_fold``
+    launched."""
+    cfg = cfg or get_config("qwen2-0.5b")
+    lin = layer_linears(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    pim = pl.PimConfig(mode="fabric", weight_bits=4, act_bits=4,
+                       fabric=fabric_cfg)
+    ref_pim = pl.PimConfig(mode="ref", weight_bits=4, act_bits=4)
+    params = {n: pl.pack_linear(pl.linear_init(gen, k, o, pim, device=dev),
+                                pim) for n, (k, o) in lin.items()}
+    dev = params["q"]["w_packed"].device
+    xs = {g: torch.randn((DECODE_SEQS, lin[names[0]][0]), generator=gen)
+          .to(dev, torch.bfloat16) for g, names in FABRIC_GROUPS}
+
+    def run(g, names):
+        return pl.fused_linear_apply([params[n] for n in names], xs[g], pim)
+
+    run(*FABRIC_GROUPS[1])     # warm-up: lowers the 512-block round fn
+    bp.lane_fold_cuda.launches = 0
+    groups, outs = {}, {}
+    with FabricCalls() as rec:
+        for i, (g, names) in enumerate(FABRIC_GROUPS):
+            f0 = bp.lane_fold_cuda.launches
+
+            def schedule(_):
+                if len(rec.calls) != i + 1:
+                    raise AssertionError(f"{g}: fused_linear_apply made "
+                                         f"{len(rec.calls) - i} fabric calls")
+                return rec.calls[-1][2].schedule
+
+            outs[g], calls, wall = launches_of(lambda: run(g, names),
+                                               schedule)
+            xq, wqs, res = rec.calls[-1]
+            sched = res.schedule
+            groups[g] = {
+                "linears": list(names), "K": int(xq.shape[1]),
+                "N": [int(w.shape[1]) for w in wqs], "wall_s": wall,
+                "rounds": len(sched.rounds),
+                "execute_blocks_launches": calls,
+                "lane_fold_launches": bp.lane_fold_cuda.launches - f0,
+                "program": sched.class_program(sched.classes[0])[0].name,
+                "n_compute": sched.n_compute}
+            # the raw accumulators against numpy on the quantized operands
+            for n, w, raw in zip(names, wqs, res.outs):
+                want = xq.astype(np.int64) @ w.astype(np.int64)
+                if raw.shape != want.shape or not np.array_equal(
+                        np.asarray(raw, np.int64), want):
+                    raise AssertionError(f"fabric {n} accumulators != "
+                                         f"numpy's int64 product")
+    launches = bp.lane_fold_cuda.launches
+    if launches == 0:
+        raise AssertionError("the fabric path never launched lane_fold")
+    for g, names in FABRIC_GROUPS:
+        want = pl.fused_linear_apply([params[n] for n in names], xs[g],
+                                     ref_pim)
+        for n, y, w in zip(names, outs[g], want):
+            if y.shape != (DECODE_SEQS, lin[n][1]) or not torch.equal(
+                    y.view(torch.int16), w.view(torch.int16)):
+                raise AssertionError(f"fabric {n} != mode ref")
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"fabric {n} not finite")
+    where = fabric_profile(lambda: run(*FABRIC_GROUPS[1])) \
+        if dev.type == "cuda" else None
+    emit({"phase": "fabric_qwen2_layer0", "ok": True, "model": cfg.name,
+          "layer": 0, "tokens": DECODE_SEQS, "bits": "W4A4",
+          "grid": dataclasses.asdict(pim.fabric or fabric.FabricConfig()),
+          "groups": groups, "wall_s": sum(v["wall_s"] for v in
+                                          groups.values()),
+          "execute_blocks_launches": sum(
+              v["execute_blocks_launches"] for v in groups.values()),
+          "lane_fold_launches": launches, "bit_identical_to_ref": True,
+          "accumulators_exact": True, "profiled_group_o": where})
+    return launches, groups
+
+
+def fabric_profile(run):
+    """Wall and device busy time of one ``run()`` under torch.profiler:
+    the busy share says how far the host holds the card back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = cuda_events(prof)
+    busy = sum(e[0] for e in ev) / 1e3
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "device_kernels": sum(e[1] for e in ev),
+            "lane_fold_ms": sum(e[0] for e in ev if "lane_fold" in e[2])
+            / 1e3,
+            "top_kernels": [{"name": n[:80], "count": c, "ms": us / 1e3}
+                            for us, c, n in ev[:6]]}
+
+
+def attention_oracle(blk, xs):
+    """Host int replay of a ``FabricAttentionBlock`` with its own fixed
+    scales (as tests/test_fabric_session.py builds it): the bit-exact
+    oracle of its decode steps."""
+    hd = blk.hd
+    kc = np.zeros((hd, 0), np.int64)
+    vc = np.zeros((0, hd), np.int64)
+    ys = []
+    for x in xs:
+        x = np.asarray(x, np.float32).reshape(1, -1)
+        qx = blk._qfix(x, blk.sx)
+        q = blk._qfix(qx @ blk._qwq * (blk.sx * blk.swq), blk.sq)
+        k = blk._qfix(qx @ blk._qwk * (blk.sx * blk.swk), blk.sk)
+        v = blk._qfix(qx @ blk._qwv * (blk.sx * blk.swv), blk.sv)
+        kc = np.hstack([kc, k.T])
+        vc = np.vstack([vc, v])
+        s = (q @ kc) * (blk.sq * blk.sk * hd ** -0.5)
+        e = np.exp(s - s.max(axis=-1, keepdims=True))
+        p = blk._qfix(e / e.sum(axis=-1, keepdims=True), blk.sp)
+        a = blk._qfix((p @ vc) * (blk.sp * blk.sv), blk.so)
+        ys.append((a @ blk._qwo * (blk.so * blk.swo)).astype(np.float32))
+    return ys
+
+
+#: decode steps of the session loop and the attention block
+FABRIC_STEPS = 4
+#: the session loop's grid size: 512 blocks, at least 256 of them
+#: computing, so layer 0's q/k/v weight tiles stay resident after step 1
+SESSION_GRID = {"n_blocks": 512, "min_compute_blocks": 256}
+
+
+def phase_fabric_dtypes(rng, dev=None, cfg=None, fabric_cfg=None,
+                        shapes=None):
+    """``fabric_matmul`` at int4, int8 (W4A8's class: ``idot8x28``, the
+    bool interior) and bf16, each exact (ints against numpy's int64
+    product, bf16 bit for bit against ``cram_fmatmul`` and
+    ``core.ref.float_matmul``, the float accumulator carried over every
+    K stage of the model's K); a ``FabricSession`` decode loop of the
+    q/k/v projections (the grid grown to :data:`SESSION_GRID`)
+    bit-identical to the sessionless replay, its weight tiles fetched in
+    step 1 only; one ``FabricAttentionBlock`` head at
+    qwen2-0.5b widths, :data:`FABRIC_STEPS` decode steps with KV
+    appends, exact against the host int oracle."""
+    cfg = cfg or get_config("qwen2-0.5b")
+    fcfg = fabric_cfg or fabric.FabricConfig()
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.hd
+    shapes = shapes or {"int4": (8, d, 256), "int8": (8, d, 128),
+                        "bf16": (1, d, 64)}
+    out = {}
+    for name, bits in (("int4", 4), ("int8", 8)):
+        m, k, n = shapes[name]
+        x, w = signed_ints(rng, bits, (m, k)), signed_ints(rng, bits, (k, n))
+        res, calls, wall = launches_of(lambda: fabric.fabric_matmul(
+            x, w, nbits=bits, cfg=fcfg, signed=True, device=dev))
+        if not np.array_equal(np.asarray(res.out, np.int64),
+                              x.astype(np.int64) @ w.astype(np.int64)):
+            raise AssertionError(f"fabric {name} != numpy")
+        prog = res.schedule.class_program(res.schedule.classes[0])[0]
+        out[name] = {"shape": [m, k, n], "wall_s": wall,
+                     "rounds": len(res.schedule.rounds),
+                     "execute_blocks_launches": calls, "program": prog.name,
+                     "packed": engine.default_packed(prog)}
+    m, k, n = shapes["bf16"]
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    res, calls, wall = launches_of(lambda: fabric.fabric_matmul(
+        x, w, cfg=fcfg, dtype="bf16", device=dev))
+    xb, wb = ref.to_bits(x, 8, 7), ref.to_bits(w, 8, 7)
+    got = res.out_bits.astype(np.uint64)
+    if not np.array_equal(got, cram.cram_fmatmul(
+            xb, wb, "bf16", cols=fcfg.cols, device=dev)) \
+            or not np.array_equal(got, ref.float_matmul(xb, wb, 8, 7)):
+        raise AssertionError("fabric bf16 != cram_fmatmul / float_matmul")
+    out["bf16"] = {"shape": [m, k, n], "wall_s": wall,
+                   "rounds": len(res.schedule.rounds),
+                   "execute_blocks_launches": calls}
+    # a session decode loop of the q/k/v projections, one token a step
+    ws = [signed_ints(rng, 4, (d, nn)) for nn in (d, kv, kv)]
+    scfg = dataclasses.replace(fcfg, **SESSION_GRID)
+    sess = fabric.FabricSession(scfg)
+    t0 = time.perf_counter()
+    for _ in range(FABRIC_STEPS):
+        x = signed_ints(rng, 4, (1, d))
+        sess.begin_step()
+        warm = fabric.fabric_fused_matmul(x, ws, nbits=4, cfg=scfg,
+                                          signed=True, session=sess,
+                                          device=dev)
+        cold = fabric.fabric_fused_matmul(x, ws, nbits=4, cfg=scfg,
+                                          signed=True, device=dev)
+        for a, b, w in zip(warm.outs, cold.outs, ws):
+            if not np.array_equal(a, b) or not np.array_equal(
+                    np.asarray(a, np.int64), x.astype(np.int64) @ w):
+                raise AssertionError("session step != sessionless / numpy")
+    fetches = list(sess.trajectory().w_fetches)
+    if fetches[0] == 0 or any(fetches[1:]):
+        raise AssertionError(f"session weight fetches per step {fetches}: "
+                             f"not resident after step 1")
+    out["session"] = {"steps": FABRIC_STEPS, "n_blocks": scfg.n_blocks,
+                      "n_compute": warm.schedule.n_compute,
+                      "wall_s": time.perf_counter() - t0,
+                      "w_fetches": fetches}
+    # one attention head at the model's widths, KV appended per step
+    hd = cfg.hd
+    wq, wk, wv = (rng.normal(size=(d, hd)).astype(np.float32) * d ** -0.5
+                  for _ in range(3))
+    wo = rng.normal(size=(hd, d)).astype(np.float32) * hd ** -0.5
+    blk = fabric.FabricAttentionBlock(wq, wk, wv, wo, cfg=fcfg, bits=8,
+                                      window=FABRIC_STEPS, device=dev)
+    xs = [rng.normal(size=(d,)).astype(np.float32)
+          for _ in range(FABRIC_STEPS)]
+    t0 = time.perf_counter()
+    ys = [blk.decode_step(x)[0] for x in xs]
+    wall = time.perf_counter() - t0
+    for i, (y, want) in enumerate(zip(ys, attention_oracle(blk, xs))):
+        if y.shape != (1, d) or not np.isfinite(y).all() \
+                or not np.array_equal(y, want):
+            raise AssertionError(f"attention block step {i} != oracle")
+    kvs = blk.report()["kv"]
+    out["attention_block"] = {"d": d, "hd": hd, "steps": FABRIC_STEPS,
+                              "wall_s": wall, "kv_len": [kvs["k"]["len"],
+                                                         kvs["v"]["len"]]}
+    emit({"phase": "fabric_dtypes", "ok": True, **out})
+    return out
+
+
+def phase_fabric_faults(rng, dev=None, fabric_cfg=None, shape=(8, 896, 128)):
+    """An int4 fabric GEMM under seeded bit flips with the parity scrub
+    on: exact, with flips injected and detected; then a dead block
+    remapped to a spare by ``repair_program``: exact."""
+    base = fabric_cfg or fabric.FabricConfig()
+    m, k, n = shape
+    x, w = signed_ints(rng, 4, (m, k)), signed_ints(rng, 4, (k, n))
+    want = x.astype(np.int64) @ w.astype(np.int64)
+    fm = faults.FaultModel(bit_rate=1e-4, scrub=True)
+    res, calls, wall = launches_of(lambda: fabric.fabric_matmul(
+        x, w, nbits=4, cfg=base, signed=True, faults=fm, device=dev))
+    if not np.array_equal(np.asarray(res.out, np.int64), want):
+        raise AssertionError("fabric under scrubbed faults != numpy")
+    if not (fm.injected_flips > 0 and fm.detected > 0 and fm.escaped == 0):
+        raise AssertionError(f"fault counters: {fm.stats()}")
+    cfg = dataclasses.replace(base, spare_blocks=1)
+    sched = fabric.schedule_gemm(m, k, n, 4, cfg=cfg, signed=True)
+    dead = next(b for b, mode in enumerate(sched.modes)
+                if mode in ("compute", "storage"))
+    plan = fabric.repair_program(sched, (dead,),
+                                 fm=faults.FaultModel(dead_blocks=(dead,)))
+    fm2 = faults.FaultModel(dead_blocks=(dead,))
+    res2, calls2, wall2 = launches_of(lambda: fabric.fabric_matmul(
+        x, w, nbits=4, cfg=cfg, signed=True, faults=fm2, device=dev))
+    if not np.array_equal(np.asarray(res2.out, np.int64), want):
+        raise AssertionError("fabric with a repaired dead block != numpy")
+    if fm2.remaps != 1 or res2.schedule.modes != plan.modes \
+            or plan.modes[dead] != "dead":
+        raise AssertionError(f"repair: {fm2.stats()} {plan.modes}")
+    emit({"phase": "fabric_faults", "ok": True, "shape": list(shape),
+          "scrub": {"wall_s": wall, "execute_blocks_launches": calls,
+                    **fm.stats()},
+          "dead_block": {"dead": dead, "modes": list(plan.modes),
+                         "wall_s": wall2, "execute_blocks_launches": calls2,
+                         **fm2.stats()}})
+
+
+def phase_fuzz(dev=None, budget=32):
+    """Every committed corpus file through every executor variant on the
+    card, the fault pin two-sided, then a budget of ``budget`` generated
+    programs: all bit-identical to the port's ``unroll`` oracle there."""
+    files = sorted((ROOT / "tests" / "corpus").glob("fuzz_*.txt"))
+    if len(files) != 8:
+        raise AssertionError(f"expected 8 corpus files, found {files}")
+    bp.lane_fold_cuda.launches = 0
+    t0 = time.perf_counter()
+    for path in files:
+        fp, pins = fuzz.load_corpus(path)
+        rep = fuzz.replay(fp, device=dev)
+        if not rep.ok or rep.cycles != pins["cycles"]:
+            raise AssertionError(f"{path.name}: {rep.mismatches}")
+    fp, _ = fuzz.load_corpus(ROOT / "tests" / "corpus" / "fuzz_faults.txt")
+    off = fp.with_groups(fp.groups, cfg=dataclasses.replace(
+        fp.cfg, fault_scrub=False))
+    if fuzz.replay(off, variants=("faults",), device=dev).ok:
+        raise AssertionError("fuzz_faults.txt: scrub off did not escape")
+    corpus_s = time.perf_counter() - t0
+    stats = fuzz.run_budget(budget, seed=0, corpus_dir=None, device=dev)
+    if stats["mismatch"] is not None or stats["programs"] != budget:
+        raise AssertionError(f"fuzz budget: {stats['mismatch']}")
+    emit({"phase": "fuzz_replay", "ok": True,
+          "corpus": [p.name for p in files], "variants": list(fuzz.VARIANTS),
+          "corpus_s": corpus_s, "budget": budget,
+          "budget_ops": stats["ops"], "budget_s": stats["seconds"],
+          "seq_histogram": stats["seq_histogram"],
+          "lane_fold_launches": bp.lane_fold_cuda.launches})
+    return bp.lane_fold_cuda.launches
+
+
+def phase_packed_vs_bool(rng):
+    """One full fabric launch (``MAX_BATCH_BLOCKS`` = 512 blocks) of
+    ``idot4x58``, ``idot8x28`` and the
+    bf16 ``float_dot`` with the packed and the bool interior: bit for bit
+    equal, and each one's graph and event time: the measurement behind
+    ``engine.PACKED_DEFAULT_MAX_CYCLES`` on this card."""
+    bf16_t = cram.fdot_geometry(floatprog.BF16)
+    progs = {"idot4x58": programs.idot(4, rows=512, tuples=58)[0],
+             "idot8x28": programs.idot(8, rows=512, tuples=28)[0],
+             f"bf16_dot x{bf16_t}": floatprog.float_dot(
+                 floatprog.BF16, rows=512, tuples=bf16_t)[0]}
+    blocks = fabric.MAX_BATCH_BLOCKS
+    st = engine.CRState(
+        array=torch.from_numpy(rng.integers(0, 2, (blocks, 512, 40))
+                               .astype(bool)).cuda(),
+        carry=torch.zeros((blocks, 40), dtype=torch.bool, device="cuda"),
+        tag=torch.ones((blocks, 40), dtype=torch.bool, device="cuda"))
+    out = {}
+    for name, prog in progs.items():
+        res = {pk: engine.execute_blocks(prog, st, packed=pk)
+               for pk in (True, False)}
+        if not all(torch.equal(a, b) for a, b in zip(res[True], res[False])):
+            raise AssertionError(f"{name}: packed != bool interior")
+        row = {"cycles": len(prog.expand()),
+               "default_packed": engine.default_packed(prog)}
+        for pk in (True, False):
+            row["packed" if pk else "bool"] = timings(
+                lambda: engine.execute_blocks(prog, st, packed=pk), reps=5,
+                warmup=1, graph_reps=3)
+        out[name] = row
+    emit({"phase": "fabric_packed_vs_bool", "ok": True, "blocks": blocks,
+          "cols": 40, "threshold_cycles": engine.PACKED_DEFAULT_MAX_CYCLES,
+          "programs": out})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -905,6 +1365,11 @@ def main():
     gemm = phase_gemm(rng)
     flash = phase_flash(rng)
     linear_launches, _ = phase_pim_linear(args.seed)
+    fabric_launches, _ = phase_fabric_layer(args.seed)
+    phase_fabric_dtypes(rng)
+    phase_fabric_faults(rng)
+    fuzz_launches = phase_fuzz()
+    phase_packed_vs_bool(rng)
     kernels = [{
         "name": "lane_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lane_fold.cu",
@@ -912,7 +1377,13 @@ def main():
         "launches": launches, "max_abs_err": stats["max_abs_err"],
         "ms": stats["ms"], "plain_ms": stats["plain_ms"],
         "bound_ms": stats["bound_ms"], "bound_by": stats["bound_by"],
-        "library_ms": None}]
+        "library_ms": None,
+        "launches_by_path": {"main_path_int4": launches,
+                             "fabric_qwen2_layer0": fabric_launches,
+                             "fuzz_replay": fuzz_launches},
+        "at_fabric_shape": {k: stats["fabric_shape"][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")}}]
     for name, line, st in (
             ("quant_matmul", "bitserial_matmul.py:106", gemm["quant_matmul"]),
             ("popcount_matmul", "bitserial_matmul.py:167",

@@ -400,13 +400,6 @@ def run(program: isa.Program, state: CRState, executor: str = "compiled",
         f"unknown executor {executor!r}; expected one of {EXECUTORS}")
 
 
-def _no_faults(faults):
-    if faults is not None and faults.active:
-        raise NotImplementedError(
-            "fault injection (core/faults.py) is not ported yet; it comes "
-            "in a later slice of the port")
-
-
 # multi-block execution -----------------------------------------------------
 def _to_wide(states: CRState) -> CRState:
     """``(blocks, rows, cols)`` batch -> one block of blocks*cols columns."""
@@ -440,11 +433,16 @@ def execute_blocks(program: isa.Program, states: CRState,
     the live ones and are sliced off on return.  The scan/unroll paths
     loop over the blocks.
 
-    ``faults``: None or an inactive fault model runs normally; an active
-    one raises ``NotImplementedError`` (fault injection is a later
-    slice of the port).
+    ``faults`` (a :class:`repro_torch.core.faults.FaultModel`, default
+    None = pristine SRAM) injects seeded bit flips / dead-block garbage
+    into the row-states before dispatch and parity-scrubs on the model's
+    cadence; injection happens on the host before lowering, so packed
+    and bool interiors see identical corruption.
     """
-    _no_faults(faults)
+    if faults is not None and faults.active:
+        from . import faults as faults_mod
+        return faults_mod.apply_block_faults(
+            program, states, faults, executor=executor, packed=packed)
     if executor == "compiled":
         blocks, rows, cols = states.array.shape
         if packed is None:
@@ -535,11 +533,17 @@ def run_chain(programs, state: CRState, *, cse: bool | None = None,
 
     Pack once, run every program's packed-io body, unpack once.
     Bit-identical to ``for p in programs: state = run(p, state)``.
-    Cached per chain fingerprint.  ``faults`` as in
-    :func:`execute_blocks`.
+    Cached per chain fingerprint.
+
+    An active ``faults`` model injects flips *between* chained programs,
+    which needs the intermediate states on the host: the chain falls
+    back to a sequential per-program replay (each leg still compiled and
+    cached); the fused path is untouched when faults are off.
     """
     programs = tuple(programs)
-    _no_faults(faults)
+    if faults is not None and faults.active:
+        from . import faults as faults_mod
+        return faults_mod.apply_chain_faults(programs, state, faults, cse=cse)
     if not programs:
         return state
     rows, cols = state.array.shape

@@ -16,11 +16,19 @@ Backends (``PimConfig.mode``):
 * ``popcount`` -- packed weights and activations, AND/popcount bit-serial
                   arithmetic (PIM-faithful path, ``popcount_matmul``).
 * ``ref``      -- the plain oracle of the packed path (``kernels.ref``).
-* ``fabric``   -- not ported yet: raises ``NotImplementedError``.
+* ``fabric``   -- the whole GEMM scheduled across a simulated Compute RAM
+                  block grid (``repro_torch.pim.fabric``): storage/compute
+                  mode allocation, per-round block launches on ``x``'s
+                  device, exact integer arithmetic on the cycle-accurate
+                  simulator.  Operands are packed on the host.
 
 Activations are dynamically quantized to int8 per call in packed modes
 (standard W4A8/W8A8 serving).  The kernels run where the tensors lie:
 CUDA tensors launch the CUDA kernels, CPU tensors their plain versions.
+
+``fused_linear_apply`` applies several linears sharing one input (the
+QKV projections); in ``fabric`` mode they run as ONE multi-GEMM
+``FabricProgram`` with shared activation residency.
 """
 
 from __future__ import annotations
@@ -38,19 +46,21 @@ from repro_torch.kernels import ref as kref
 __all__ = ["PimConfig", "linear_init", "pack_linear", "linear_apply",
            "fused_linear_apply", "params_from_numpy"]
 
-_FABRIC_NOT_PORTED = (
-    "PimConfig(mode='fabric') is not ported yet: it waits for the execute "
-    "side of pim/fabric.py (ROADMAP.md, 'Still to port')")
-
-
 @dataclasses.dataclass(frozen=True)
 class PimConfig:
     mode: str = "off"            # off | ref | pallas | popcount | fabric
     weight_bits: int = 4
     act_bits: int = 8
-    # fabric mode only (kept so configs carry over; fabric is not ported)
+    # fabric mode only: the block grid to schedule onto (a
+    # repro_torch.pim.fabric.FabricConfig; None = that module's default)
     fabric: Optional[object] = None
+    # fabric mode only: pick the grid split per GEMM shape with
+    # repro_torch.pim.fabric.search_program (costmodel argmin), on the
+    # grid's own block geometry so tuning compiles no extra program.
     fabric_autotune: bool = False
+    # fabric mode only: a repro_torch.pim.fabric.FabricSession carrying
+    # warm resident-tile state across sequential fused_linear_apply calls
+    # (compares and hashes by identity, so the config stays frozen).
     fabric_session: Optional[object] = None
 
     @property
@@ -88,7 +98,9 @@ def linear_apply(params: dict, x: torch.Tensor,
     if not cfg.packed:
         return x @ params["w"]
     if cfg.mode == "fabric":
-        raise NotImplementedError(_FABRIC_NOT_PORTED)
+        # one pipeline for single and fused fabric GEMMs: the fused path
+        # with a single weight IS the single-GEMM schedule
+        return fused_linear_apply((params,), x, cfg)[0]
 
     orig_shape = x.shape
     xf = x.reshape(-1, orig_shape[-1])
@@ -114,12 +126,50 @@ def fused_linear_apply(params_list, x: torch.Tensor, cfg: PimConfig):
     """Apply several linears sharing the input (the QKV projections).
 
     Returns a tuple ``(x @ W_0, x @ W_1, ...)``, one per entry of
-    ``params_list``: :func:`linear_apply` per layer, as the reference
-    does outside ``fabric`` mode.
+    ``params_list``.  In ``fabric`` mode the projections are fused into
+    ONE :class:`repro_torch.pim.fabric.FabricProgram`: one grid
+    allocation, shared activation residency, batched wide-block
+    launches on ``x``'s device.  Bit-identical to calling
+    :func:`linear_apply` per layer -- the activation quantization is per
+    call and deterministic, so the fused path shares it exactly.  Other
+    modes simply loop :func:`linear_apply`.
     """
-    if cfg.mode == "fabric":
-        raise NotImplementedError(_FABRIC_NOT_PORTED)
-    return tuple(linear_apply(p, x, cfg) for p in params_list)
+    params_list = list(params_list)
+    if cfg.mode != "fabric":
+        return tuple(linear_apply(p, x, cfg) for p in params_list)
+
+    from repro_torch.pim import fabric as fabric_mod
+
+    orig_shape = x.shape
+    xf = x.reshape(-1, orig_shape[-1])
+    qx, sx = kops.quantize(xf.to(torch.float32), bits=cfg.act_bits, axis=0)
+    qws = [kref.unpack_bitplanes(p["w_packed"], axis=0, signed=True)
+           for p in params_list]
+    fcfg = cfg.fabric if cfg.fabric is not None \
+        else fabric_mod.FabricConfig()
+    nbits = max(cfg.act_bits, cfg.weight_bits)
+    prog = None
+    if cfg.fabric_autotune:
+        specs = tuple(fabric_mod.GemmSpec(f"proj{g}", qx.shape[0],
+                                          qx.shape[1], qw.shape[1])
+                      for g, qw in enumerate(qws))
+        prog = fabric_mod.search_program(
+            specs, nbits, base=fcfg, signed=True,
+            geometries=((fcfg.rows, fcfg.cols),)).schedule
+    res = fabric_mod.fabric_fused_matmul(
+        qx.cpu().numpy().astype(np.int64),
+        [qw.cpu().numpy().astype(np.int64) for qw in qws],
+        nbits=nbits, cfg=fcfg, signed=True, program=prog,
+        names=tuple(f"proj{g}" for g in range(len(qws))),
+        session=cfg.fabric_session, device=x.device)
+    outs = []
+    for raw, p in zip(res.outs, params_list):
+        acc = torch.from_numpy(raw.astype(np.float32)).to(x.device) \
+            * p["w_scale"][None, :]
+        y = acc * sx[:, None]
+        outs.append(
+            y.reshape(orig_shape[:-1] + (y.shape[-1],)).to(x.dtype))
+    return tuple(outs)
 
 
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:

@@ -339,3 +339,54 @@ def test_pim_linear_on_card_runs_the_kernels(card):
         got = pl.linear_apply(packed, x, pl.PimConfig(mode=mode))
         assert fn.launches == before + 1
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_faulted_engine_on_card_equals_cpu(card):
+    """The fault hooks copy the state to the host, inject and scrub there
+    and put it back on the card: the same flips, counters and outputs as
+    on the CPU, and the result stays on the card."""
+    from repro_torch.core import engine, faults, fuzz
+
+    cfg = fuzz.FuzzConfig()
+    prog = fuzz.gen_program(3, cfg).program
+    outs = {}
+    for dev in ("cpu", card):
+        fm = faults.FaultModel(bit_rate=3e-3, seed=1, scrub=False)
+        st = fuzz.gen_state(3, cfg, blocks=cfg.blocks, device=dev)
+        got = engine.execute_blocks(prog, st, "compiled", faults=fm)
+        assert got.array.device.type == torch.device(dev).type
+        one = fuzz.gen_state(3, cfg, device=dev)
+        chain = engine.run_chain([prog, prog], one, faults=fm)
+        outs[str(dev)] = ([f.cpu() for f in got + chain], fm.stats())
+    (a, sa), (b, sb) = outs.values()
+    assert sa == sb and sa["injected_flips"] > 0
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_fuzz_corpus_replays_on_card(card):
+    from repro_torch.core import fuzz
+
+    files = sorted((Path(__file__).parent / "corpus").glob("fuzz_*.txt"))
+    assert len(files) == 8
+    for path in files:
+        rep = fuzz.replay(fuzz.load_corpus(path)[0], device=card)
+        assert rep.ok, (path.name, rep.mismatches)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_fabric_on_card_runs_the_kernel_and_equals_cpu(card, bits):
+    """A 512-block fabric launch on the card equals the CPU's and numpy's
+    product; int4 rounds (the packed interior) launch ``lane_fold``."""
+    from repro_torch.pim import fabric
+
+    rng = np.random.default_rng(61)
+    x = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (3, 300))
+    w = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (300, 50))
+    before = bp.lane_fold_cuda.launches
+    got = fabric.fabric_matmul(x, w, nbits=bits, signed=True, device=card)
+    folds = bp.lane_fold_cuda.launches - before
+    cpu = fabric.fabric_matmul(x, w, nbits=bits, signed=True, device="cpu")
+    np.testing.assert_array_equal(got.out, cpu.out)
+    np.testing.assert_array_equal(np.asarray(got.out, np.int64),
+                                  x.astype(np.int64) @ w)
+    assert (folds > 0) == (bits == 4)

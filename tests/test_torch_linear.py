@@ -127,14 +127,24 @@ def test_fused_linear_apply_equals_per_layer_calls(mode):
 
 
 def test_fabric_mode_is_not_ported_yet():
-    cfg = pl.PimConfig(mode="fabric")
-    p = pl.pack_linear(pl.linear_init(torch.Generator().manual_seed(0), 64,
-                                      32, cfg, device="cpu"), cfg)
-    x = torch.zeros((2, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="fabric"):
-        pl.linear_apply(p, x, cfg)
-    with pytest.raises(NotImplementedError, match="fabric"):
-        pl.fused_linear_apply([p, p], x, cfg)
+    """Fabric mode equals mode ``ref`` bit for bit, single and fused.
+    The name dates from when fabric mode raised, before the fabric's
+    execute side was ported; it is kept so the test keeps its id."""
+    from repro_torch.pim.fabric import FabricConfig
+
+    grid = FabricConfig(n_blocks=6, rows=128, cols=8)
+    cfg = pl.PimConfig(mode="fabric", fabric=grid)
+    ref = pl.PimConfig(mode="ref")
+    gen = torch.Generator().manual_seed(0)
+    p, q = (pl.pack_linear(pl.linear_init(gen, 64, n, cfg, device="cpu"),
+                           cfg) for n in (32, 7))
+    x = torch.randn((2, 64), generator=gen).to(torch.bfloat16)
+    assert torch.equal(pl.linear_apply(p, x, cfg).view(torch.int16),
+                       pl.linear_apply(p, x, ref).view(torch.int16))
+    for got, want in zip(pl.fused_linear_apply([p, q], x, cfg),
+                         pl.fused_linear_apply([p, q], x, ref)):
+        assert got.shape == want.shape
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def test_device_none_means_the_card(monkeypatch):
