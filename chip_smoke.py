@@ -18,6 +18,13 @@ through their public entry points:
   modes ``pallas`` (``quant_matmul``) and ``popcount``
   (``popcount_matmul``) and ``flash_attention``, on 128 tokens and on a
   decode step of 8;
+* the serve engine over the model zoo: full-width qwen2-0.5b (24
+  layers, random weights from a seeded numpy Generator) answering 6
+  requests in 4 slots through ``ServeEngine``, with a
+  ``FabricLinearProbe`` sending layer 0's q/k/v projections of the first
+  decode steps' live activations through the fabric at 4 bits (every
+  round launch folds through ``lane_fold``); and ``flash_attention``
+  against the models' ``chunked_attention`` at the model's shape;
 * the fabric: the same seven linears of layer 0 on 8 decode tokens
   through ``fused_linear_apply`` with ``PimConfig(mode="fabric")`` at
   W4A4 (every round launch of 512 blocks folds through ``lane_fold``);
@@ -58,9 +65,14 @@ from repro_torch.kernels import bitserial_matmul as bsm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.models import attention as mattn  # noqa: E402
+from repro_torch.models.convert import init_numpy  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.models.qweight import tree_leaves, tree_map  # noqa
 from repro_torch.pim import cram  # noqa: E402
 from repro_torch.pim import fabric  # noqa: E402
 from repro_torch.pim import linear as pl  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine, _bucket  # noqa
 
 ROOT = Path(__file__).resolve().parent
 
@@ -918,6 +930,39 @@ def phase_flash(rng):
     return out["variants"]["float32 causal=True"]
 
 
+def phase_flash_model(rng):
+    """``flash_attention`` on the card against the model zoo's
+    ``chunked_attention`` (the counterpart of
+    tests/test_kernels.py::test_flash_attention_matches_model_chunked_path)
+    at qwen2-0.5b's attention shape, (b, s, h, hd) = (1, 128, 14, 64),
+    causal, 64-key chunks: float32 within :data:`FLASH_F32_TOL`, bf16 by
+    :func:`flash_agrees` against the chunked result rounded to bf16."""
+    cfg = get_config("qwen2-0.5b")
+    b, s, h, hd = 1, 128, cfg.n_heads, cfg.hd
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, s, h, hd))
+                                .astype(np.float32)).cuda()
+               for _ in range(3))
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").expand(b, s)
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (x.to(dt) for x in (q, k, v))
+        want = mattn.chunked_attention(qd, kd, vd, pos, pos, causal=True,
+                                       chunk=64).to(dt)
+        got = fa.flash_attention_cuda(fold(qd), fold(kd), fold(vd))
+        got = got.reshape(b, h, s, hd).transpose(1, 2)
+        if got.dtype != dt or not flash_agrees(got, want):
+            raise AssertionError(f"flash {dt} != chunked_attention: "
+                                 f"{flash_error(got, want)}")
+        out[str(dt)[6:]] = flash_error(got, want)
+    emit({"phase": "flash_vs_chunked_attention", "ok": True,
+          "shape_bshd": [b, s, h, hd], "causal": True, "chunk": 64, **out})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # The fabric: its execute side, fault hooks and fuzz replay
 # ---------------------------------------------------------------------------
@@ -1063,7 +1108,7 @@ def phase_fabric_layer(seed, dev=None, cfg=None, fabric_cfg=None):
                 raise AssertionError(f"fabric {n} != mode ref")
             if not torch.isfinite(y).all():
                 raise AssertionError(f"fabric {n} not finite")
-    where = fabric_profile(lambda: run(*FABRIC_GROUPS[1])) \
+    where = device_profile(lambda: run(*FABRIC_GROUPS[1])) \
         if dev.type == "cuda" else None
     emit({"phase": "fabric_qwen2_layer0", "ok": True, "model": cfg.name,
           "layer": 0, "tokens": DECODE_SEQS, "bits": "W4A4",
@@ -1077,7 +1122,7 @@ def phase_fabric_layer(seed, dev=None, cfg=None, fabric_cfg=None):
     return launches, groups
 
 
-def fabric_profile(run):
+def device_profile(run):
     """Wall and device busy time of one ``run()`` under torch.profiler:
     the busy share says how far the host holds the card back."""
     from torch.profiler import ProfilerActivity, profile
@@ -1330,6 +1375,233 @@ def phase_packed_vs_bool(rng):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The serve engine over the model zoo
+# ---------------------------------------------------------------------------
+#: prompt lengths of the serve phase's requests: more requests than the
+#: engine's slots, prefill buckets 8, 16 and 64, and a 100-token prompt
+#: whose tail streams through chunked prefill
+SERVE_PROMPTS = (5, 12, 16, 33, 64, 100)
+SERVE_MAX_NEW = 8
+SERVE_SLOTS, SERVE_CAPACITY, SERVE_CHUNK = 4, 256, 64
+#: decode steps the fabric probe samples (a 4-bit fabric launch of the
+#: q/k/v projections takes tens of ms of host time)
+PROBE_STEPS = 2
+#: the card's prefill logits against the port's CPU run on the same
+#: weights: rtol = atol, the bound the reference holds its own decode
+#: against its prefill to (tests/test_arch_smoke.py).  The two devices
+#: sum each bf16 GEMM in float32 in another order, so the bf16 roundings
+#: of the 24 layers fall apart here and there; a wrong kernel, cache or
+#: layout moves logits by far more.
+SERVE_CPU_TOL = 0.05
+
+
+def replicated(caches, b):
+    """A batch-1 model cache replicated over ``b`` slots: the batch dim is
+    1 under "unit" (stacked layers), 0 under "rest"."""
+    return {"unit": tree_map(lambda x: x.expand(
+        (x.shape[0], b) + x.shape[2:]).clone(), caches["unit"]),
+        "rest": tree_map(lambda x: x.expand((b,) + x.shape[1:]).clone(),
+                         caches["rest"])}
+
+
+def manual_greedy(model, params, prompt, max_new, slots, capacity,
+                  bucket=None):
+    """Greedy ``prefill`` + ``decode_step`` of one prompt at the serve
+    engine's shapes: the prompt zero-padded to ``bucket`` (the engine's
+    prefill bucket; ``None``: unpadded), the cache replicated over
+    ``slots`` lanes that all decode the same token."""
+    dev = model.device
+    n = len(prompt)
+    padded = np.zeros((bucket or n,), np.int32)
+    padded[:n] = prompt
+    logits, caches = model.prefill(
+        params, tokens=torch.from_numpy(padded)[None].to(dev),
+        capacity=capacity)
+    cur = int(torch.argmax(logits[0, n - 1]))
+    outs, caches = [cur], replicated(caches, slots)
+    for pos in range(n, n + max_new - 1):
+        lg, caches = model.decode_step(
+            params, caches,
+            torch.full((slots, 1), cur, dtype=torch.int32, device=dev),
+            torch.full((slots,), pos, dtype=torch.int32, device=dev))
+        cur = int(torch.argmax(lg[0, 0]))
+        outs.append(cur)
+    return outs
+
+
+def phase_serve(seed, dev=None, cfg=None, fabric_cfg=None,
+                prompts=SERVE_PROMPTS, capacity=SERVE_CAPACITY,
+                chunk=SERVE_CHUNK):
+    """The system's serving entry point: ``ServeEngine`` over ``LM`` of
+    qwen2-0.5b at its published widths, params from ``init_numpy(cfg,
+    seed)``, 6 greedy requests of 8 new tokens in 4 slots, with a
+    ``FabricLinearProbe`` of layer 0's q/k/v at 4 bits on the first
+    :data:`PROBE_STEPS` decode steps.  Every request finishes with 8
+    tokens; request 0's chain equals :func:`manual_greedy` at the
+    engine's bucketed shape; each probe output equals ``observe_ref`` on
+    the same activations bit for bit; ``lane_fold`` is launched by the
+    probe; the card's prefill logits of the 16-token prompt agree with
+    the port's CPU run on the same weights within :data:`SERVE_CPU_TOL`.
+    Then the times: prefill per bucket, one warm decode step and its
+    device busy share."""
+    cfg = cfg or get_config("qwen2-0.5b")
+    cuda = dev is None or torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = t0 = time.perf_counter()
+    model = LM(cfg, dev)
+    params = init_numpy(cfg, seed, dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    toks = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in prompts]
+    d = cfg.d_model
+    attn0 = tree_map(lambda x: x[0], params["unit"]["b0"]["attn"])
+    ws = [attn0[n].reshape(d, -1).float().cpu().numpy()
+          for n in ("wq", "wk", "wv")]
+    probe = fabric.FabricLinearProbe(
+        ws, cfg=fabric_cfg or fabric.FabricConfig(), bits=4,
+        max_steps=PROBE_STEPS, device=model.device)
+    seen, observe = [], probe.observe
+
+    def recorded(x):
+        seen.append(np.array(x))
+        return observe(x)
+
+    probe.observe = recorded
+    eng = ServeEngine(model, params, batch_slots=SERVE_SLOTS,
+                      capacity=capacity, prefill_chunk=chunk,
+                      fabric_probe=probe, device=model.device)
+    for rid, p in enumerate(toks):
+        eng.add(Request(rid=rid, prompt=p, max_new=SERVE_MAX_NEW))
+    bp.lane_fold_cuda.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    done = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = bp.lane_fold_cuda.launches
+
+    if sorted(r.rid for r in done) != list(range(len(toks))) \
+            or any(len(r.out) != SERVE_MAX_NEW for r in done):
+        raise AssertionError(f"served {[(r.rid, len(r.out)) for r in done]}")
+    if launches == 0:
+        raise AssertionError("the serve probe never launched lane_fold")
+    if len(seen) != PROBE_STEPS or len(probe.outputs) != PROBE_STEPS:
+        raise AssertionError(f"probe sampled {len(probe.outputs)} steps")
+    for x, ys in zip(seen, probe.outputs):
+        if not all(np.array_equal(y, w) for y, w in
+                   zip(ys, probe.observe_ref(x))):
+            raise AssertionError("probe output != observe_ref")
+    req0 = next(r for r in done if r.rid == 0)
+    bucket = min(_bucket(len(toks[0])), capacity)
+    manual = manual_greedy(model, params, toks[0], SERVE_MAX_NEW,
+                           SERVE_SLOTS, capacity, bucket)
+    if req0.out != manual:
+        raise AssertionError(f"request 0 {req0.out} != manual {manual}")
+    # reported, not held: the same loop with the prompt unpadded
+    unpadded = manual_greedy(model, params, toks[0], SERVE_MAX_NEW,
+                             SERVE_SLOTS, capacity)
+
+    # the card against the port's CPU run on the same weights, with
+    # cuBLAS's bf16 reductions in float32 as the CPU's are (held), and
+    # at torch's default, which lets split-K reduce in bf16 (reported)
+    t_cpu = time.perf_counter()
+    p16 = next(p for p in toks if len(p) == 16)
+    t16 = torch.from_numpy(p16)[None]
+    want = LM(cfg, "cpu").prefill(init_numpy(cfg, seed, "cpu"), tokens=t16,
+                                  capacity=16)[0].float()
+
+    def card_logits(reduced_bf16):
+        mm = torch.backends.cuda.matmul
+        keep = mm.allow_bf16_reduced_precision_reduction
+        mm.allow_bf16_reduced_precision_reduction = reduced_bf16
+        try:
+            return model.prefill(params, tokens=t16.to(model.device),
+                                 capacity=16)[0].float().cpu()
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = keep
+
+    cpu_check = {"prompt_len": 16, "rtol_atol": SERVE_CPU_TOL,
+                 "max_abs_logit": want.abs().max().item()}
+    for reduced in (False, True):
+        got = card_logits(reduced)
+        err = (got - want).abs()
+        cpu_check["bf16_reductions" if reduced else "f32_reductions"] = {
+            "max_abs_err": err.max().item(),
+            "max_over_bound": (err / (SERVE_CPU_TOL * (1 + want.abs())))
+            .max().item(),
+            "greedy_tokens_equal": bool(torch.equal(got.argmax(-1),
+                                                    want.argmax(-1)))}
+        if not reduced and (not torch.isfinite(got).all()
+                            or not torch.allclose(got, want,
+                                                  rtol=SERVE_CPU_TOL,
+                                                  atol=SERVE_CPU_TOL)):
+            raise AssertionError(f"prefill logits, card against CPU: "
+                                 f"{cpu_check}")
+    cpu_check["seconds"] = time.perf_counter() - t_cpu
+
+    # times: prefill per bucket, a warm decode step at the engine's batch
+    buckets = sorted(eng.fault_report()["prefill_bucket_shapes"])
+    per_bucket = {}
+    for bk in buckets:
+        t = torch.zeros((1, bk), dtype=torch.int32, device=model.device)
+        runs = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            model.prefill(params, tokens=t, capacity=capacity)
+            sync()
+            runs.append(time.perf_counter() - t0)
+        per_bucket[bk] = {"min_ms": min(runs) * 1e3,
+                          "runs_ms": [r * 1e3 for r in runs]}
+    tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int32,
+                      device=model.device)
+    pos = torch.full((SERVE_SLOTS,), 120, dtype=torch.int32,
+                     device=model.device)
+
+    def decode():
+        model.decode_step(params, eng.caches, tok, pos)
+
+    decode()
+    steps = []
+    for _ in range(10):
+        sync()
+        t0 = time.perf_counter()
+        decode()
+        sync()
+        steps.append(time.perf_counter() - t0)
+    step_ms = float(np.median(steps)) * 1e3
+    st = eng.stats
+    emit({"phase": "serve_qwen2_0_5b", "ok": True, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": d, "vocab": cfg.vocab,
+          "params_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+          "init_s": init_s, "slots": SERVE_SLOTS, "capacity": capacity,
+          "prefill_chunk": chunk, "prompts": list(prompts),
+          "max_new": SERVE_MAX_NEW, "wall_s": wall,
+          "requests_done": len(done), "chains": {r.rid: r.out for r in done},
+          "chain_equals_manual": True,
+          "unpadded_chain_equals_manual": unpadded == manual,
+          "probe_steps": len(probe.outputs),
+          "probe_observed_m": list(probe.observed_m),
+          "probe_equals_observe_ref": True, "lane_fold_launches": launches,
+          "cpu_check": cpu_check,
+          "engine_stats": {k: st[k] for k in (
+              "steps", "prefill_compiles", "stream_prefill_tokens",
+              "prefill_s", "prefill_tokens", "decode_s", "decode_tokens",
+              "decode_cold_s", "decode_warm_s", "decode_warm_steps")},
+          "prefill_ms_per_bucket": per_bucket,
+          "decode_step_ms": {"median": step_ms,
+                             "runs": [x * 1e3 for x in steps]},
+          "decode_tokens_per_s": SERVE_SLOTS / (step_ms / 1e3),
+          "decode_step_profile": device_profile(decode) if cuda else None,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"lane_fold_launches": launches, "requests_done": len(done),
+            "probe_steps": len(probe.outputs),
+            "probe_equals_observe_ref": True, "chain_equals_manual": True}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1364,8 +1636,10 @@ def main():
     phase_executors(rng)
     gemm = phase_gemm(rng)
     flash = phase_flash(rng)
+    phase_flash_model(rng)
     linear_launches, _ = phase_pim_linear(args.seed)
     fabric_launches, _ = phase_fabric_layer(args.seed)
+    serve_launches = phase_serve(args.seed)["lane_fold_launches"]
     phase_fabric_dtypes(rng)
     phase_fabric_faults(rng)
     fuzz_launches = phase_fuzz()
@@ -1380,6 +1654,7 @@ def main():
         "library_ms": None,
         "launches_by_path": {"main_path_int4": launches,
                              "fabric_qwen2_layer0": fabric_launches,
+                             "serve_qwen2_0_5b": serve_launches,
                              "fuzz_replay": fuzz_launches},
         "at_fabric_shape": {k: stats["fabric_shape"][k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -2,7 +2,8 @@
 reference's, and the port imports neither JAX nor the JAX package.
 
 ``repro_torch`` keeps its own copies of ``core/isa``, ``programs``,
-``floatprog``, ``ref``, ``costmodel`` and ``configs``.  These tests hold
+``floatprog``, ``ref``, ``costmodel``, ``configs`` and the serve
+engine's ``kv``, ``scheduler`` and ``loadgen``.  These tests hold
 each copy to its original byte for byte and on the programs the slice
 runs (fingerprint, cycles, footprint, expanded stream).  The numpy
 halves of ``core/faults`` and ``pim/fabric`` are copied function by
@@ -34,7 +35,8 @@ from repro_torch.pim import fabric  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 _COPIED = ["core/isa.py", "core/programs.py", "core/floatprog.py",
-           "core/ref.py", "core/costmodel.py"] + sorted(
+           "core/ref.py", "core/costmodel.py", "serve/kv.py",
+           "serve/scheduler.py", "serve/loadgen.py"] + sorted(
     f"configs/{p.name}" for p in (SRC / "repro" / "configs").glob("*.py")
     if p.name != "__init__.py")
 
