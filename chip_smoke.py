@@ -25,6 +25,15 @@ through their public entry points:
   decode steps' live activations through the fabric at 4 bits (every
   round launch folds through ``lane_fold``); and ``flash_attention``
   against the models' ``chunked_attention`` at the model's shape;
+* the training loop: full-width qwen2-0.5b (24 layers, ``remat_policy``
+  "full") taking 8 AdamW steps on 4 x 256 synthetic tokens through
+  ``Trainer``, checkpointing every 3 steps, failing once at step 5,
+  restoring and replaying bit for bit under
+  ``torch.use_deterministic_algorithms``; one step on the card against
+  the same step on the CPU; the card's checkpoint restored on the CPU
+  bit for bit; and ``python -m repro_torch.launch.train`` for 4 steps.
+  Training launches none of the four kernels, and the phase holds their
+  counters unchanged;
 * the fabric: the same seven linears of layer 0 on 8 decode tokens
   through ``fused_linear_apply`` with ``PimConfig(mode="fabric")`` at
   W4A4 (every round launch of 512 blocks folds through ``lane_fold``);
@@ -47,13 +56,20 @@ import argparse
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS is deterministic only with a fixed workspace, which must be set
+# before CUDA starts (the training phase runs under
+# torch.use_deterministic_algorithms)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -73,6 +89,12 @@ from repro_torch.pim import cram  # noqa: E402
 from repro_torch.pim import fabric  # noqa: E402
 from repro_torch.pim import linear as pl  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, _bucket  # noqa
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
+from repro_torch.train import optimizer as optim  # noqa: E402
+from repro_torch.train import tree as ttree  # noqa: E402
+from repro_torch.train.data import DataConfig, Pipeline  # noqa: E402
+from repro_torch.train.runner import RunnerConfig, Trainer  # noqa: E402
+from repro_torch.train.step import make_train_step, value_and_grad  # noqa
 
 ROOT = Path(__file__).resolve().parent
 
@@ -907,12 +929,15 @@ def phase_flash(rng):
     if not flash_agrees(got, fa.flash_attention_torch(q, k, v)):
         raise AssertionError("flash (14, 128, 64) bf16 causal != plain")
     kt = timings(lambda: fa.flash_attention_cuda(q, k, v))
+    pt = timings(lambda: fa.flash_attention_torch(q, k, v), reps=5,
+                 warmup=1, graph_reps=3)
     lib, lib_err = try_timings(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True))
     out["path_prefill"] = {
         "shape": list(q.shape), "dtype": "bfloat16", "causal": True,
-        "ms": kt["ms"], "event_ms": kt["event_ms"], "library_ms": lib["ms"],
+        "ms": kt["ms"], "event_ms": kt["event_ms"], "plain_ms": pt["ms"],
+        "plain_event_ms": pt["event_ms"], "library_ms": lib["ms"],
         "library_event_ms": lib["event_ms"], "library_error": lib_err}
     # ragged lengths and other head dims against the plain version
     for bh, sl, hd in ((3, 1000, 128), (2, 77, 32), (5, 9, 96)):
@@ -1602,6 +1627,317 @@ def phase_serve(seed, dev=None, cfg=None, fabric_cfg=None,
             "probe_equals_observe_ref": True, "chain_equals_manual": True}
 
 
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 256
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 3, 5
+#: the card's train step against the port's CPU run on the same params,
+#: optimizer state and 1 x 32 tokens: the loss and the global gradient
+#: norm within these relative bounds, each gradient leaf within
+#: TRAIN_GRAD_SHARE of that leaf's largest |g|.  The two devices sum
+#: each bf16 GEMM in float32 in another order, so the bf16 roundings of
+#: the 24 layers' activations and gradients fall apart here and there
+#: (the port against the JAX package on the CPU: at most 0.033 of a
+#: leaf's max at the smoke widths, tests/test_torch_train.py).
+TRAIN_CPU_TOKENS = 32
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_SHARE = 1e-3, 1e-2, 0.05
+
+
+def kernel_launches():
+    """The launch counters of the four kernel wrappers."""
+    return {c.__name__.removesuffix("_cuda"): c.launches
+            for c in (bp.lane_fold_cuda, bsm.quant_matmul_cuda,
+                      bsm.popcount_matmul_cuda, fa.flash_attention_cuda)}
+
+
+def same_bits(a, b):
+    """Two trees of tensors (and python scalars) equal bit for bit."""
+    la, da = ttree.tree_flatten(a)
+    lb, db = ttree.tree_flatten(b)
+    if da != db:
+        return False
+    for x, y in zip(la, lb):
+        if not isinstance(x, torch.Tensor):
+            if x != y:
+                return False
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[x.element_size()]
+        if not torch.equal(x.view(ints).cpu(), y.view(ints).cpu()):
+            return False
+    return True
+
+
+def grad_share(got, want):
+    """Per leaf of two gradient trees: max |got - want| over max |want|;
+    returns the worst leaf's share and its index in leaf order."""
+    shares = []
+    for g, w in zip(ttree.tree_leaves(got), ttree.tree_leaves(want)):
+        g, w = g.float().cpu(), w.float().cpu()
+        shares.append((g - w).abs().max().item()
+                      / max(w.abs().max().item(), 1e-30))
+    worst = int(np.argmax(shares))
+    return shares[worst], worst
+
+
+def phase_train(seed, dev=None, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                cpu_tokens=TRAIN_CPU_TOKENS, launch_args=("--full",)):
+    """The system's training entry point: ``Trainer`` over ``LM`` of
+    qwen2-0.5b at its published widths (``remat_policy`` "full"), params
+    from ``init_numpy(cfg, seed)``, AdamW at lr 3e-3 with 2 warm-up
+    steps, :data:`TRAIN_STEPS` steps of ``batch`` x ``seq`` synthetic
+    tokens, a checkpoint every :data:`TRAIN_CKPT_EVERY` steps and one
+    injected failure at step :data:`TRAIN_FAIL_AT`, all under
+    ``torch.use_deterministic_algorithms``.  Held: the run ends at step
+    8 after one restart with its step-8 checkpoint latest; every loss is
+    finite and the last three average below the first three; the
+    replayed steps' losses and the final state equal an uninterrupted
+    run's bit for bit; the step-8 checkpoint restores on the CPU bit for
+    bit; one step on ``cpu_tokens`` tokens on the card agrees with the
+    CPU's (loss, grad norm, every gradient leaf; the bounds above); the
+    four kernels' launch counters do not move.  Then the times (a warm
+    step; the step outside deterministic mode, whole and in its two
+    halves under the profiler; peak memory; a synchronous and an async
+    checkpoint save) and ``python -m repro_torch.launch.train`` for 4
+    steps in a subprocess (``launch_args`` after its shared flags)."""
+    cfg = cfg or get_config("qwen2-0.5b")
+    if cfg.remat_policy != "full":
+        raise AssertionError(f"remat_policy {cfg.remat_policy!r}")
+    cuda = dev is None or torch.device(dev).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+    model = LM(cfg, dev)
+    dev = model.device
+    opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=2,
+                              total_steps=TRAIN_STEPS)
+    pipe = Pipeline(DataConfig(seed=0, global_batch=batch, seq_len=seq,
+                               vocab=cfg.vocab), device=dev)
+    train_step = make_train_step(model, opt_cfg)
+    t0 = time.perf_counter()
+    params0 = init_numpy(cfg, seed, dev)
+    opt0 = optim.init(params0, opt_cfg)
+    sync()
+    init_s = time.perf_counter() - t0
+
+    def run(ckpt_dir, ckpt_every, fail_at=None):
+        losses, logs = [], []
+
+        def step_fn(p, o, b):
+            s = int(o.step)
+            p, o, m = train_step(p, o, b)
+            losses.append((s, m["loss"].item()))
+            return p, o, m
+
+        def fail_hook(step):
+            if step == fail_at and not fail_hook.fired:
+                fail_hook.fired = True
+                raise RuntimeError("simulated node failure")
+
+        fail_hook.fired = False
+        tr = Trainer(RunnerConfig(total_steps=TRAIN_STEPS,
+                                  ckpt_every=ckpt_every, ckpt_dir=ckpt_dir,
+                                  keep=2, log_every=1),
+                     step_fn, params0, opt0, pipe, fail_hook=fail_hook,
+                     log=logs.append)
+        t0 = time.perf_counter()
+        end, _ = tr.run()
+        return tr, end, losses, logs, time.perf_counter() - t0
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as fault_dir, \
+                tempfile.TemporaryDirectory() as clean_dir:
+            faulty, end, fault_losses, fault_log, fault_wall = run(
+                fault_dir, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT)
+            latest = ckpt.latest_step(fault_dir)
+            if (end, faulty.restarts, latest) != (TRAIN_STEPS, 1,
+                                                   TRAIN_STEPS):
+                raise AssertionError(f"end {end}, restarts "
+                                     f"{faulty.restarts}, latest {latest}")
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            clean, _, clean_losses, _, clean_wall = run(
+                clean_dir, 10 * TRAIN_STEPS)
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+            restart = next(i for i in range(1, len(fault_losses))
+                           if fault_losses[i][0] <= fault_losses[i - 1][0])
+            replayed = fault_losses[restart:]
+            clean_at = dict(clean_losses)
+            if [s for s, _ in replayed] != list(range(
+                    TRAIN_CKPT_EVERY, TRAIN_STEPS)):
+                raise AssertionError(f"replayed steps {replayed}")
+            if any(v != clean_at[s] for s, v in fault_losses):
+                raise AssertionError(f"losses {fault_losses} != "
+                                     f"{clean_losses}")
+            if not same_bits(
+                    {"params": faulty.params, "opt": faulty.opt_state},
+                    {"params": clean.params, "opt": clean.opt_state}):
+                raise AssertionError("the replayed run's final state "
+                                     "differs from the uninterrupted run's")
+            losses = [v for _, v in clean_losses]
+            if not all(np.isfinite(losses)) \
+                    or np.mean(losses[-3:]) >= np.mean(losses[:3]):
+                raise AssertionError(f"losses {losses}")
+
+            # the card's step-8 checkpoint on the CPU, bit for bit
+            t0 = time.perf_counter()
+            state = {"params": faulty.params, "opt": faulty.opt_state,
+                     "data": pipe.state_dict(0)}
+            on_cpu = ttree.tree_map(
+                lambda x: x.cpu() if isinstance(x, torch.Tensor) else x,
+                state)
+            restored, meta = ckpt.restore(fault_dir, on_cpu)
+            on_cpu["data"] = pipe.state_dict(TRAIN_STEPS)
+            if meta["step"] != TRAIN_STEPS or not same_bits(restored,
+                                                            on_cpu):
+                raise AssertionError("the step-8 checkpoint restored on "
+                                     "the CPU differs from the card's")
+            restore_s = time.perf_counter() - t0
+            del on_cpu
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    # one step on the card against the same step on the CPU, from the
+    # step-8 state, taken in the train step's two halves so that the
+    # gradients can be compared
+    t_cpu = time.perf_counter()
+    small = Pipeline(DataConfig(seed=0, global_batch=1, seq_len=cpu_tokens,
+                                vocab=cfg.vocab), device="cpu").batch(
+                                    TRAIN_STEPS)
+    cpu_model = LM(cfg, "cpu")
+    out = {}
+    for where, m, tree in (("card", model, state), ("cpu", cpu_model,
+                                                    restored)):
+        b = {k: v.to(m.device) for k, v in small.items()}
+        loss, grads = value_and_grad(m.loss)(tree["params"], b)
+        _, _, met = optim.apply(tree["params"], grads, tree["opt"], opt_cfg)
+        out[where] = (loss.item(), met["grad_norm"].item(), grads)
+    (l_card, n_card, g_card), (l_cpu, n_cpu, g_cpu) = out["card"], out["cpu"]
+    share, worst_leaf = grad_share(g_card, g_cpu)
+    cpu_check = {
+        "tokens": cpu_tokens, "loss": [l_card, l_cpu],
+        "loss_rel_err": abs(l_card - l_cpu) / abs(l_cpu),
+        "loss_rtol": TRAIN_LOSS_RTOL, "grad_norm": [n_card, n_cpu],
+        "grad_norm_rel_err": abs(n_card - n_cpu) / abs(n_cpu),
+        "grad_norm_rtol": TRAIN_GNORM_RTOL,
+        "worst_grad_share": share, "worst_grad_leaf": worst_leaf,
+        "grad_share_bound": TRAIN_GRAD_SHARE}
+    if not (cpu_check["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and cpu_check["grad_norm_rel_err"] <= TRAIN_GNORM_RTOL
+            and share <= TRAIN_GRAD_SHARE):
+        raise AssertionError(f"train step, card against CPU: {cpu_check}")
+    cpu_check["seconds"] = time.perf_counter() - t_cpu
+    restarts = faulty.restarts
+    del out, g_card, g_cpu, restored, state, faulty
+
+    # times: a warm step, one step under the profiler, checkpoint saves
+    step_s = float(np.median(clean.step_times[1:]))
+    batch0 = pipe.batch(0)
+
+    def one_step():
+        train_step(clean.params, clean.opt_state, batch0)
+
+    tree = {"params": clean.params, "opt": clean.opt_state,
+            "data": pipe.state_dict(TRAIN_STEPS)}
+    ckpt_bytes = sum(t.numel() * t.element_size()
+                     for t in ttree.tree_leaves(tree)
+                     if isinstance(t, torch.Tensor))
+    with tempfile.TemporaryDirectory() as save_dir:
+        sync()
+        t0 = time.perf_counter()
+        ckpt.save(save_dir, 1, tree)
+        save_s = time.perf_counter() - t0
+        saver = ckpt.AsyncSaver()
+        t0 = time.perf_counter()
+        saver.submit(save_dir, 2, tree)
+        submit_s = time.perf_counter() - t0
+        saver.wait()
+        async_s = time.perf_counter() - t0
+
+    # the same step outside deterministic mode, whole and in its two
+    # halves (forward + remat + backward; the optimizer)
+    default_mode_ms = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        one_step()
+        sync()
+        default_mode_ms.append((time.perf_counter() - t0) * 1e3)
+    grad_fn = value_and_grad(model.loss)
+    grads = grad_fn(clean.params, batch0)[1]
+    profile = split = None
+    if cuda:
+        profile = device_profile(one_step)
+        split = {"grad": device_profile(
+                     lambda: grad_fn(clean.params, batch0)),
+                 "apply": device_profile(lambda: optim.apply(
+                     clean.params, grads, clean.opt_state, opt_cfg))}
+    step_times = clean.step_times
+
+    # the entry point, in a process of its own
+    del clean, tree, batch0, grads
+    if cuda:
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as launch_dir:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train",
+               "--arch", "qwen2-0.5b", "--steps", "4", "--batch",
+               str(batch), "--seq", str(seq), "--ckpt-dir", launch_dir,
+               *launch_args]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [p for p in [os.environ.get(
+                "PYTHONPATH")] if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=600)
+        launch_s = time.perf_counter() - t0
+        last = (proc.stdout.strip().splitlines() or [""])[-1]
+        if proc.returncode != 0 or not last.startswith(
+                "finished at step 4"):
+            raise AssertionError(f"launch.train exited {proc.returncode}: "
+                                 f"{proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-2000:]}")
+    after = kernel_launches()
+    if after != before:
+        raise AssertionError(f"training launched a kernel: {before} -> "
+                             f"{after}")
+    emit({"phase": "train_qwen2_0_5b", "ok": True, "model": cfg.name,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "remat_policy": cfg.remat_policy,
+          "params": sum(t.numel() for t in ttree.tree_leaves(params0)),
+          "batch": batch, "seq": seq, "steps": TRAIN_STEPS,
+          "init_s": init_s, "restarts": restarts,
+          "latest_checkpoint": latest, "losses": losses,
+          "fault_run": {"losses": fault_losses, "wall_s": fault_wall,
+                        "log": fault_log},
+          "replayed_bit_identical": True,
+          "final_state_bit_identical": True,
+          "checkpoint_restored_on_cpu_bit_identical": True,
+          "restore_on_cpu_s": restore_s, "cpu_check": cpu_check,
+          "clean_run_wall_s": clean_wall,
+          "step_ms": {"median_warm": step_s * 1e3,
+                      "first": step_times[0] * 1e3,
+                      "runs": [x * 1e3 for x in step_times]},
+          "tokens_per_s": batch * seq / step_s,
+          "step_ms_default_mode": default_mode_ms,
+          "step_profile": profile, "step_profile_halves": split,
+          "max_memory_allocated_bytes": peak,
+          "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_save_s": {"sync": save_s, "async_submit": submit_s,
+                                "async_total": async_s},
+          "launch": {"cmd": cmd[1:], "returncode": proc.returncode,
+                     "last_line": last, "wall_s": launch_s},
+          "kernel_launches_before": before, "kernel_launches_after": after,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"restarts": restarts, "latest": latest,
+            "losses": losses, "replayed": replayed,
+            "cpu_check": cpu_check, "launch_rc": proc.returncode,
+            "kernel_launches": (before, after)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1640,6 +1976,7 @@ def main():
     linear_launches, _ = phase_pim_linear(args.seed)
     fabric_launches, _ = phase_fabric_layer(args.seed)
     serve_launches = phase_serve(args.seed)["lane_fold_launches"]
+    phase_train(args.seed)
     phase_fabric_dtypes(rng)
     phase_fabric_faults(rng)
     fuzz_launches = phase_fuzz()

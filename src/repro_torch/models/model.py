@@ -10,14 +10,22 @@ loop that indexes it.  Three execution modes:
 * ``decode_step`` -- one token with ring-buffer KV / recurrent state
 
 ``LM(cfg, device=None)`` runs on ``device`` (``None``: the GPU; it raises
-when there is none).  The reference rematerializes each scanned layer in
-training (``remat_policy``); that matters only for gradients, which come
-with the training slice of the port.
+when there is none).  When autograd records a ``"train"`` forward, each
+layer is rematerialized by ``cfg.remat_policy`` as the reference's
+``jax.checkpoint`` does (the encoder stack always in full):
+``torch.utils.checkpoint`` per layer for ``"full"``, selective
+checkpointing that saves the matmuls without batch dims for ``"dots"``.
+Gradients are the same under every policy; prefill and decode never
+rematerialize.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
@@ -174,6 +182,42 @@ def _layer(tree, i):
     return None if tree is None else tree_map(lambda x: x[i], tree)
 
 
+def _unstack(tree):
+    """A stacked tree as the list of its layers: one ``unbind`` per leaf,
+    whose backward is one ``stack`` of the layers' gradients (indexing
+    each layer would build a zero-filled full-size gradient per layer)."""
+    cols = [torch.unbind(x) for x in tree_leaves(tree)]
+
+    def layer(i):
+        it = iter([c[i] for c in cols])
+        return tree_map(lambda _: next(it), tree)
+
+    return [layer(i) for i in range(len(cols[0]))]
+
+
+_aten = torch.ops.aten
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of the matmuls without batch dims (``mm``/``addmm``, and
+    the batch-1 ``bmm`` that ``einsum`` makes of such a product) and
+    recompute everything else."""
+    if op in (_aten.mm.default, _aten.addmm.default) or (
+            op is _aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, policy):
+    """``body`` rematerialized by ``policy`` ("full" / "dots")."""
+    kw = {"use_reentrant": False}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    return functools.partial(checkpoint, body, **kw)
+
+
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
@@ -222,20 +266,30 @@ class LM:
 
     # -- stacked group execution ---------------------------------------------
     def _run_unit(self, stacked, h, positions, mode, caches, unit=None,
-                  enc_out=None, enc_pos=None, causal=True):
+                  enc_out=None, enc_pos=None, causal=True, remat=None):
+        """``remat``: the policy of a training forward (``None``: the
+        config's ``remat_policy``)."""
         cfg = self.cfg
         unit = unit or self.unit
-        new_caches, aux = [], 0.0
-        for layer in range(tree_leaves(stacked)[0].shape[0]):
-            lp, lc = _layer(stacked, layer), _layer(caches, layer)
-            new_lc = {}
+        remat = remat or cfg.remat_policy
+
+        def body(lp, h, lc):
+            new_lc, aux = {}, 0.0
             for i, t in enumerate(unit):
                 c_i = lc[f"b{i}"] if lc is not None else None
                 h, nc, a = _block_apply(lp[f"b{i}"], h, cfg, t, positions,
                                         mode, c_i, enc_out, enc_pos, causal)
                 new_lc[f"b{i}"] = nc
                 aux = aux + a
+            return h, new_lc, aux
+
+        if mode == "train" and remat != "none" and torch.is_grad_enabled():
+            body = _remat(body, remat)
+        new_caches, aux = [], 0.0
+        for layer, lp in enumerate(_unstack(stacked)):
+            h, new_lc, a = body(lp, h, _layer(caches, layer))
             new_caches.append(new_lc)
+            aux = aux + a
         return h, _stack(new_caches), aux
 
     def _embed(self, params, tokens=None, embeds=None):
@@ -255,7 +309,8 @@ class LM:
         """Bidirectional encoder stack (enc-dec archs)."""
         enc = params["encoder"]
         h, _, _ = self._run_unit(enc["unit"], embeds, positions, "train",
-                                 None, unit=["attn"], causal=False)
+                                 None, unit=["attn"], causal=False,
+                                 remat="full")
         return rmsnorm(h, enc["final_norm"], self.cfg.norm_eps)
 
     # -- public entry points --------------------------------------------------
@@ -331,7 +386,7 @@ class LM:
 
     # -- loss -----------------------------------------------------------------
     def loss(self, params, batch):
-        """Next-token cross entropy (+ MoE aux); forward only here."""
+        """Next-token cross entropy (+ MoE aux)."""
         tokens = batch["tokens"]
         enc_out = enc_pos = None
         if self.cfg.is_encdec:

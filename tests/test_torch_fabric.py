@@ -21,12 +21,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
 from repro.core import faults as ref_faults  # noqa: E402
 from repro.core import ref as core_ref  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.pim import fabric as jf  # noqa: E402
 from repro.pim import linear as jl  # noqa: E402
 from repro_torch.core import engine, faults  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.pim import cram  # noqa: E402
 from repro_torch.pim import fabric as tf  # noqa: E402
 from repro_torch.pim import linear as pl  # noqa: E402
@@ -124,6 +128,35 @@ def test_fabric_matmul_int_matches_reference(nbits, blocks, shape, signed):
     want = jf.fabric_matmul(x, w, nbits=nbits, cfg=ref_cfg, signed=signed)
     _same_result(got, want)
     np.testing.assert_array_equal(np.asarray(got.out, np.int64), x @ w)
+
+
+@pytest.mark.parametrize("nbits", [4, 8])
+def test_fabric_matches_port_popcount(nbits):
+    """``tests/test_fabric.py::test_fabric_matches_pallas_popcount`` on
+    the port: ``fabric_matmul`` equals the port's ``ops.popcount_matmul``
+    (its plain version on CPU tensors) on the same signed operands, K a
+    multiple of 32; both equal the JAX package's fabric and its Pallas
+    popcount kernel (interpret mode on the CPU)."""
+    rng = np.random.default_rng(90 + nbits)
+    m, k, n = 4, 32, 8
+    x, w = _ints(rng, (m, k), nbits), _ints(rng, (k, n), nbits)
+    cfg, ref_cfg = _grids(4)
+    via_fabric = tf.fabric_matmul(x, w, nbits=nbits, cfg=cfg, signed=True,
+                                  device="cpu").out
+    via_popcount = ops.popcount_matmul(
+        ops.pack_bitplanes(torch.from_numpy(x.astype(np.int32)), nbits,
+                           axis=1),
+        ops.pack_bitplanes(torch.from_numpy(w.astype(np.int32)), nbits,
+                           axis=0)).numpy()
+    np.testing.assert_array_equal(via_fabric, via_popcount)
+    ref_popcount = np.asarray(jops.popcount_matmul(
+        jref.pack_bitplanes(jnp.asarray(x, jnp.int32), nbits, axis=1),
+        jref.pack_bitplanes(jnp.asarray(w, jnp.int32), nbits, axis=0)))
+    np.testing.assert_array_equal(via_popcount, ref_popcount)
+    np.testing.assert_array_equal(
+        via_fabric, jf.fabric_matmul(x, w, nbits=nbits, cfg=ref_cfg,
+                                     signed=True).out)
+    np.testing.assert_array_equal(np.asarray(via_fabric, np.int64), x @ w)
 
 
 def test_fused_program_matches_reference():
