@@ -34,6 +34,16 @@ through their public entry points:
   bit for bit; and ``python -m repro_torch.launch.train`` for 4 steps.
   Training launches none of the four kernels, and the phase holds their
   counters unchanged;
+* the launch layer: qwen2-0.5b's decode_32k, prefill_32k and train_4k
+  cells traced by ``launch.dryrun`` on fake tensors over a fake process
+  group of 256 ranks (a (16, 16) mesh) and decode_32k on 512 ((2, 16,
+  16)); a one-card decode of 32768-position sequences at the largest
+  batch whose estimated peak fits the card, run for real through a (1,
+  1) mesh and held to the estimate (argument bytes and FLOPs exactly,
+  peak memory within 10 %) beside its H100 roofline; and
+  ``launch.train`` on a one-rank NCCL mesh against the mesh-free train
+  step (losses, final state bit for bit).  It launches none of the four
+  kernels;
 * the fabric: the same seven linears of layer 0 on 8 decode tokens
   through ``fused_linear_apply`` with ``PimConfig(mode="fabric")`` at
   W4A4 (every round launch of 512 blocks folds through ``lane_fold``);
@@ -53,6 +63,7 @@ is present or a phase fails.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
 import itertools
 import json
@@ -1938,6 +1949,316 @@ def phase_train(seed, dev=None, cfg=None, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
             "kernel_launches": (before, after)}
 
 
+# ---------------------------------------------------------------------------
+# The launch layer: the dry-run on fake process groups, held against the
+# card, and training through a mesh
+# ---------------------------------------------------------------------------
+#: qwen2-0.5b's production cells the dry-run traces: (shape, multi_pod)
+LAUNCH_CELLS = (("decode_32k", False), ("prefill_32k", False),
+                ("train_4k", False), ("decode_32k", True))
+#: batches of 32768-position sequences tried for the one-card decode, from
+#: decode_32k's 128 down: the largest whose estimated peak is under
+#: LAUNCH_MEM_SHARE of the card's memory runs
+LAUNCH_BATCHES = (128, 64, 32, 16, 8)
+LAUNCH_MEM_SHARE = 0.8
+LAUNCH_PEAK_RTOL = 0.10         # the real peak against the estimate
+LAUNCH_TRAIN_STEPS = 4
+
+
+def train_log(stdout):
+    """(losses, step ms) of ``Trainer``'s ``[train]`` lines, and the last
+    metrics of ``launch.train``'s closing line."""
+    losses, ms, last = [], [], None
+    for line in stdout.splitlines():
+        if line.startswith("[train] step "):
+            parts = line.split()
+            losses.append(float(parts[4]))
+            ms.append(float(parts[5].strip("(")))
+        elif line.startswith("finished at step "):
+            last = ast.literal_eval(line.split(": ", 1)[1])
+    return losses, ms, last
+
+
+def phase_launch(seed, dev=None, cfg=None, cells=LAUNCH_CELLS, seq=32768,
+                 batches=LAUNCH_BATCHES, mem_bytes=None,
+                 train_batch=TRAIN_BATCH, train_seq=TRAIN_SEQ,
+                 launch_args=("--full",)):
+    """The launch layer (``repro_torch.launch``) on the card, in three
+    parts.  1: ``dryrun.lower_cell`` for qwen2-0.5b's ``cells`` on the
+    (16, 16) and (2, 16, 16) meshes of a fake process group, fake tensors
+    on the card's device type: each ok, on 256 or 512 ranks, with
+    collectives (d_ff 4864 splits on "model") and a temp.  2: the dry-run
+    of a one-card decode of ``cfg`` at ``seq`` positions, for each of
+    ``batches`` until the estimated peak (arguments + temp) is under
+    :data:`LAUNCH_MEM_SHARE` of ``mem_bytes`` (default: the card's); then
+    that decode step for real through a (1, 1) mesh on a one-rank group,
+    from ``init_numpy(cfg, seed)`` weights and ``init_cache``: its
+    arguments' bytes and ``FlopCounterMode``'s count equal the
+    estimate's exactly, its peak (``max_memory_allocated`` over the step
+    beyond what was allocated before it, plus the arguments) lies within
+    :data:`LAUNCH_PEAK_RTOL` of the estimate; a warm step's wall (CUDA
+    events, median of 5) beside the H100 roofline of the same cell.  3:
+    ``launch.train`` (always on a mesh; here ``make_mesh(1, 1)`` on a
+    one-rank group) for :data:`LAUNCH_TRAIN_STEPS` steps of
+    ``train_batch`` x ``train_seq`` in a subprocess under
+    ``torch.use_deterministic_algorithms``, its losses within
+    ``TRAIN_LOSS_RTOL`` of the same steps of the mesh-free
+    ``make_train_step`` in this process, and whether its final state is
+    bit-identical to theirs; then one mesh step against one mesh-free
+    step in this process: wall and kernels.  No kernel of the four is
+    launched."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch import sharding as lsh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import init_group
+    from repro_torch.models.common import use_mesh
+
+    cfg = cfg or get_config("qwen2-0.5b")
+    dev = engine.resolve_device(dev)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_phase = time.perf_counter()
+    before = kernel_launches()
+
+    # 1. the production dry-run
+    production = []
+    for shape, multi in cells:
+        r = dryrun.lower_cell("qwen2-0.5b", shape, multi_pod=multi,
+                              device=dev)
+        mem = r.get("memory_analysis", {})
+        if not (r["status"] == "ok" and r["chips"] == (512 if multi else 256)
+                and r["collective_bytes"] > 0
+                and mem["temp_size_in_bytes"] > 0):
+            raise AssertionError(f"dry-run {shape} multi_pod={multi}: {r}")
+        production.append({
+            "shape": shape, "multi_pod": multi, "status": r["status"],
+            "chips": r["chips"], "trace_s": r["compile_s"],
+            "per_rank_argument_bytes": mem["argument_size_in_bytes"],
+            "per_rank_temp_bytes": mem["temp_size_in_bytes"],
+            "per_rank_output_bytes": mem["output_size_in_bytes"],
+            "collective_bytes": r["collective_bytes"],
+            "collective_by_kind": r["collective_by_kind"],
+            "collective_ops": r["collective_ops"],
+            "counted_flops": r["counted_flops"],
+            "counted_bytes": r["counted_bytes"],
+            "analytic_flops": r["analytic_flops"],
+            "analytic_bytes": r["analytic_bytes"],
+            "model_flops_6nd": r["model_flops_6nd"],
+            "h100_roofline": analysis.roofline(
+                r["analytic_flops"], r["analytic_bytes"],
+                r["collective_bytes"], r["chips"])})
+
+    # 2. the one-card estimate, held against the card
+    mem_bytes = mem_bytes or torch.cuda.get_device_properties(
+        dev).total_memory
+    estimates = []
+    for b in batches:
+        sh = {"kind": "decode", "seq": seq, "batch": b}
+        with dryrun.fake_group(1):
+            est = dryrun.trace_step(cfg, sh, make_mesh(
+                1, 1, device_type=dev.type), device=dev)
+        ma = est["memory_analysis"]
+        est_peak = ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"]
+        estimates.append({"batch": b, "est_peak_bytes": est_peak,
+                          "trace_s": est["compile_s"]})
+        if est_peak < LAUNCH_MEM_SHARE * mem_bytes:
+            break
+    else:
+        raise AssertionError(f"no decode batch fits: {estimates}")
+    model = LM(cfg, dev)
+    rng = np.random.default_rng(seed)
+    init_group(dev)
+    try:
+        mesh = make_mesh(1, 1, device_type=dev.type)
+        params = init_numpy(cfg, seed, dev)
+        caches = model.init_cache(b, seq)
+        ins = [torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1)).astype(
+                   np.int32)).to(dev),
+               torch.full((b,), seq - 1, dtype=torch.int32, device=dev)]
+        args = (lsh.distribute(params, lsh.params_sharding(params, mesh),
+                               mesh),
+                lsh.distribute(caches, lsh.cache_sharding(caches, mesh),
+                               mesh),
+                *lsh.distribute(ins, lsh.batch_sharding(ins, mesh), mesh))
+        del params, caches, ins
+        arg_bytes = dryrun.local_bytes(args)
+        sync()
+        base = torch.cuda.memory_allocated(dev) if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        with use_mesh(mesh), FlopCounterMode(display=False) as fc:
+            out = model.decode_step(*args)
+        sync()
+        real_peak = (torch.cuda.max_memory_allocated(dev) - base + arg_bytes
+                     if cuda else None)
+        logits = out[0].full_tensor()
+        if tuple(logits.shape) != (b, 1, cfg.vocab) \
+                or not torch.isfinite(logits.float()).all():
+            raise AssertionError(f"decode logits {tuple(logits.shape)}")
+        del out, logits
+        walls = []
+        for _ in range(5 if cuda else 1):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)) if cuda else (None, None)
+            t0 = time.perf_counter()
+            if cuda:
+                e0.record()
+            with use_mesh(mesh):
+                out = model.decode_step(*args)
+            if cuda:
+                e1.record()
+            sync()
+            walls.append(e0.elapsed_time(e1) if cuda
+                         else (time.perf_counter() - t0) * 1e3)
+            del out
+        del args
+    finally:
+        dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+    terms = analysis.terms_for(cfg, sh, 1)
+    card = {
+        "batch": b, "seq": seq, "mem_bytes": mem_bytes,
+        "estimates": estimates,
+        "argument_bytes": [arg_bytes, ma["argument_size_in_bytes"]],
+        "counted_flops": [fc.get_total_flops(), est["counted_flops"]],
+        "peak_bytes": [real_peak, est_peak],
+        "peak_rel_err": (abs(real_peak - est_peak) / est_peak
+                         if cuda else None),
+        "peak_rtol": LAUNCH_PEAK_RTOL,
+        "est_temp_bytes": ma["temp_size_in_bytes"],
+        "est_collective_ops": est["collective_ops"],
+        "warm_step_ms": float(np.median(walls)), "step_ms_runs": walls,
+        "h100_roofline": analysis.roofline(
+            terms["analytic_flops"], terms["analytic_bytes"], 0.0, 1),
+        "counted_roofline": analysis.roofline(
+            est["counted_flops"], est["counted_bytes"], 0.0, 1),
+        "analytic": terms}
+    card["roofline_share"] = card["h100_roofline"]["roofline_s"] * 1e3 \
+        / card["warm_step_ms"]
+    if arg_bytes != ma["argument_size_in_bytes"] \
+            or fc.get_total_flops() != est["counted_flops"] \
+            or (cuda and card["peak_rel_err"] > LAUNCH_PEAK_RTOL):
+        raise AssertionError(f"one-card decode against its estimate: {card}")
+
+    # 3. training through the mesh: launch.train against the mesh-free
+    # step, the same 4 steps, both deterministic
+    opt_cfg = optim.OptConfig(lr=3e-3, warmup_steps=10,
+                              total_steps=LAUNCH_TRAIN_STEPS)  # the launcher's
+    pipe = Pipeline(DataConfig(seed=0, global_batch=train_batch,
+                               seq_len=train_seq, vocab=cfg.vocab),
+                    device=dev)
+    train_step = make_train_step(model, opt_cfg)
+    p = init_numpy(cfg, 0, dev)
+    o = optim.init(p, opt_cfg)
+    free_losses = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for s in range(LAUNCH_TRAIN_STEPS):
+            p, o, m = train_step(p, o, pipe.batch(s))
+            free_losses.append(m["loss"].item())
+        with tempfile.TemporaryDirectory() as launch_dir:
+            code = ("import sys, torch; "
+                    "torch.use_deterministic_algorithms(True); "
+                    "from repro_torch.launch import train; "
+                    "train.main(sys.argv[1:])")
+            cmd = [sys.executable, "-c", code, "--arch", "qwen2-0.5b",
+                   "--steps", str(LAUNCH_TRAIN_STEPS), "--batch",
+                   str(train_batch), "--seq", str(train_seq), "--ckpt-dir",
+                   launch_dir, "--log-every", "1", *launch_args]
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [str(ROOT / "src")] + [x for x in [os.environ.get(
+                    "PYTHONPATH")] if x]))
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=600)
+            launch_s = time.perf_counter() - t0
+            mesh_losses, mesh_ms, last = train_log(proc.stdout)
+            if proc.returncode != 0 or last is None \
+                    or len(mesh_losses) != LAUNCH_TRAIN_STEPS:
+                raise AssertionError(f"launch.train exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stdout[-2000:]}"
+                                     f"{proc.stderr[-2000:]}")
+            like = {"params": p, "opt": o, "data": pipe.state_dict(0)}
+            state, meta = ckpt.restore(launch_dir, like)
+            state_bits = meta["step"] == LAUNCH_TRAIN_STEPS and same_bits(
+                {"params": state["params"], "opt": state["opt"]},
+                {"params": p, "opt": o})
+            del state
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh_losses, free_losses)]
+    last_exact = last["loss"] == free_losses[-1]
+    if max(rel) > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"launch.train losses {mesh_losses} against "
+                             f"the mesh-free {free_losses}")
+
+    # one mesh step against one mesh-free step, in this process
+    batch0 = pipe.batch(0)
+    init_group(dev)
+    try:
+        mesh = make_mesh(1, 1, device_type=dev.type)
+        ps = lsh.params_sharding(p, mesh)
+        mp = lsh.distribute(p, ps, mesh)
+        mo = lsh.distribute(o, lsh.opt_sharding(o, ps, mesh), mesh)
+
+        def mesh_step():
+            b_ = lsh.distribute(batch0, lsh.batch_sharding(batch0, mesh),
+                                mesh)
+            with use_mesh(mesh):
+                return train_step(mp, mo, b_)
+
+        def free_step():
+            return train_step(p, o, batch0)
+
+        step_ms = {}
+        for name, fn in (("mesh", mesh_step), ("mesh_free", free_step),
+                         ("mesh", mesh_step), ("mesh_free", free_step)):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            step_ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        profiles = ({"mesh": device_profile(mesh_step),
+                     "mesh_free": device_profile(free_step)}
+                    if cuda else None)
+        del mp, mo
+    finally:
+        dist.destroy_process_group()
+    del p, o, batch0
+    if cuda:
+        torch.cuda.empty_cache()
+    after = kernel_launches()
+    if after != before:
+        raise AssertionError(f"the launch phase launched a kernel: "
+                             f"{before} -> {after}")
+    train = {
+        "steps": LAUNCH_TRAIN_STEPS, "batch": train_batch, "seq": train_seq,
+        "mesh_losses_4dp": mesh_losses, "mesh_free_losses": free_losses,
+        "loss_rel_err": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+        "last_loss": [last["loss"], free_losses[-1]],
+        "last_loss_bit_identical": last_exact,
+        "final_state_bit_identical": state_bits,
+        "launch_step_ms": mesh_ms, "launch_wall_s": launch_s,
+        "in_process_step_ms": step_ms, "step_profile": profiles,
+        # the mesh-free step as PERF.md records it before the launch
+        # layer (H100 80GB HBM3, 700.00 W)
+        "earlier_mesh_free_step": {"ms": 412.00, "kernels": 8854}}
+    emit({"phase": "launch_qwen2_0_5b", "ok": True,
+          "production_dry_run": production, "one_card_decode": card,
+          "train_through_mesh": train,
+          "kernel_launches_before": before, "kernel_launches_after": after,
+          "phase_s": time.perf_counter() - t_phase})
+    return {"production": production, "card": card, "train": train,
+            "kernel_launches": (before, after)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1981,6 +2302,7 @@ def main():
     phase_fabric_faults(rng)
     fuzz_launches = phase_fuzz()
     phase_packed_vs_bool(rng)
+    phase_launch(args.seed)
     kernels = [{
         "name": "lane_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lane_fold.cu",

@@ -68,7 +68,8 @@ def unpack_bitplanes(planes: torch.Tensor, axis: int, signed: bool,
     out = None
     for b, c in enumerate(coefs):
         p = torch.movedim(planes[b], axis, -1)
-        bitvals = (p[..., :, None] >> shifts) & 1      # & 1 masks sign fill
+        # & 1 masks sign fill; DTensor's ``>>`` drops the broadcast
+        bitvals = torch.bitwise_right_shift(p[..., :, None], shifts) & 1
         v = bitvals.reshape(p.shape[:-1] + (-1,)).to(dtype) * c
         out = v if out is None else out + v
     return torch.movedim(out, -1, axis)

@@ -9,10 +9,12 @@ out-of-place copies: no function here mutates a cache it was given.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import common
-from .common import dense_init, rope, shard
+from .common import dense_init, per_shard, rope, shard, shard_like
 from .qweight import dq
 
 NEG_INF = -1e30
@@ -60,8 +62,15 @@ def chunked_attention(q, k, v, pos_q, pos_k, *, causal: bool,
 
     q: (B, Sq, H, hd);  k, v: (B, Sk, H, hd) (KV already repeated);
     pos_q: (B, Sq), pos_k: (B, Sk) int32 (-1 = invalid key slot).
-    Working set per step is O(Sq * chunk), never O(Sk^2).
+    Working set per step is O(Sq * chunk), never O(Sk^2).  On a mesh it
+    runs on each rank's shards (``common.per_shard``).
     """
+    return per_shard(functools.partial(
+        _chunked_attention, causal=causal, window=window, chunk=chunk),
+        q, k, v, pos_q, pos_k, out_like=q)
+
+
+def _chunked_attention(q, k, v, pos_q, pos_k, *, causal, window, chunk):
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
@@ -69,9 +78,10 @@ def chunked_attention(q, k, v, pos_q, pos_k, *, causal: bool,
     scale = hd ** -0.5
 
     qf = q.to(torch.float32) * scale
-    m = torch.full((b, sq, h), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, sq, h), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, sq, h, hd), dtype=torch.float32, device=q.device)
+    # the accumulators take qf's layout (its placements on a mesh)
+    m = torch.full_like(qf[..., 0], NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
     for c0 in range(0, sk, chunk):
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         pc = pos_k[:, c0:c0 + chunk]
@@ -192,11 +202,14 @@ def _kv_values(cfg, k, v, pos):
     return {"k": kq, "v": vq, "k_s": ks_, "v_s": vs_, "pos": pos}
 
 
-def _set(t, idx, val):
-    """``t.at[idx].set(val)``: a copy of ``t`` with ``val`` written."""
-    t = t.clone()
-    t[idx] = val.to(t.dtype)
-    return t
+def _set(t, slot, val):
+    """``t.at[arange(B), slot].set(val)``: a copy of the ``(B, cap, ...)``
+    leaf ``t`` with each row's ``val`` written at its ring slot, as a
+    select, which keeps ``t``'s placements on a mesh (an indexed write
+    into a batch-sharded DTensor has no sharding strategy)."""
+    hit = torch.arange(t.shape[1], device=t.device) == slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (t.ndim - 2))
+    return torch.where(hit, shard_like(val[:, None].to(t.dtype), t), t)
 
 
 def attn_decode(params, x, cache, cfg, pos, *, window=None):
@@ -207,9 +220,9 @@ def attn_decode(params, x, cache, cfg, pos, *, window=None):
     q, k, v = _qkv(params, x, x, cfg, positions, positions)
 
     cap = cache["k"].shape[1]
-    idx = (torch.arange(b, device=x.device), pos % cap)   # ring buffer
+    slot = pos % cap                                      # ring buffer
     vals = _kv_values(cfg, k[:, 0], v[:, 0], pos)
-    new_cache = {n: _set(t, idx, vals[n]) for n, t in cache.items()}
+    new_cache = {n: _set(t, slot, vals[n]) for n, t in cache.items()}
     ck = _kv_read(new_cache, "k")
     cv = _kv_read(new_cache, "v")
     cp = new_cache["pos"]
@@ -220,15 +233,21 @@ def attn_decode(params, x, cache, cfg, pos, *, window=None):
     vh = _repeat_kv(cv, cfg.n_heads)
     kh = shard(kh, "batch", None, "model", None)
     vh = shard(vh, "batch", None, "model", None)
+    out = per_shard(functools.partial(_attend_cache, window=window),
+                    qh, kh, vh, cp, positions, out_like=qh).to(x.dtype)
+    y = torch.einsum("bshk,hkd->bsd", out, dq(params["wo"]))
+    return y, new_cache
+
+
+def _attend_cache(qh, kh, vh, cp, positions, *, window):
+    """One query a row against its whole ring-buffer cache."""
     s_ = torch.einsum("bqhd,bchd->bqhc", qh, kh)
     valid = (cp >= 0)[:, None, :] & (cp[:, None, :] <= positions[:, :, None])
     if window is not None:
         valid = valid & (cp[:, None, :] > positions[:, :, None] - window)
     s_ = torch.where(valid[:, :, None, :], s_, NEG_INF)
     p = torch.softmax(s_, dim=-1)
-    out = torch.einsum("bqhc,bchd->bqhd", p, vh).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, dq(params["wo"]))
-    return y, new_cache
+    return torch.einsum("bqhc,bchd->bqhd", p, vh)
 
 
 def prefill_kv_cache(params, x, cfg, positions, capacity, window=None):
@@ -243,11 +262,15 @@ def prefill_kv_cache(params, x, cfg, positions, capacity, window=None):
         ks = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         vs = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         ps = torch.nn.functional.pad(positions, (0, pad), value=-1)
-    # ring-consistent placement: slot = pos % cap
+    # ring-consistent placement: slot = pos % cap.  A row's positions
+    # are consecutive from 0 (prefill's), so its slots are a permutation
+    # of the ring and the cache is gathered by the inverse permutation:
+    # out of place, which keeps each leaf's layout on a mesh (an indexed
+    # write into a fresh cache would replicate it on every rank)
     ring = torch.arange(cap, device=x.device)[None, :] % cap
-    idx = (torch.arange(b, device=x.device)[:, None],
-           torch.where(ps >= 0, ps % cap, ring))
-    cache = init_kv_cache(cfg, b, cap, device=x.device)
+    inv = torch.argsort(torch.where(ps >= 0, ps % cap, ring), dim=1)
+    cache = {}
     for n, val in _kv_values(cfg, ks, vs, ps).items():
-        cache[n][idx] = val.to(cache[n].dtype)      # a fresh cache
+        idx = inv.reshape(inv.shape + (1,) * (val.ndim - 2))
+        cache[n] = torch.gather(val, 1, idx.expand(val.shape))
     return cache

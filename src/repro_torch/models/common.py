@@ -1,23 +1,205 @@
-"""Shared model utilities: norms, rope, init, and the sharding hook.
+"""Shared model utilities: the sharding hook, norms, rope, init.
 
-The counterpart of ``repro.models.common``.  The port runs a model on one
-card, so the reference's sharding layer is the identity here:
-``shard(x, *spec)`` returns ``x`` and keeps the call sites reading as the
-reference's.  The mesh helpers behind it (``_active_mesh``,
-``batch_axes``, ``resolve_spec``, ``spec_for``) serve only the
-reference's multi-device launch code and have no counterpart on one
-card.
+The counterpart of ``repro.models.common``.  Sharding specs are written
+with the reference's logical axes (``"batch"``, ``"model"``, ``None``);
+``resolve_spec`` drops the axes a mesh lacks and those that do not
+divide a dimension, and ``spec_to_placements`` turns the result into
+DTensor placements on a ``torch.distributed`` ``DeviceMesh`` with the
+reference's axis names.  ``with use_mesh(mesh):`` makes a mesh active,
+as ``with mesh:`` does in JAX; under it ``shard(x, *spec)`` redistributes
+a DTensor ``x`` to its resolved placements (the reference's
+``with_sharding_constraint``).  Outside a mesh, and on a plain tensor,
+``shard`` is the identity, so a one-device run is unchanged.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 
+# ---------------------------------------------------------------------------
+# Sharding: specs are written with logical axes; `shard()` silently drops
+# axes the active mesh doesn't have ("pod" on single-pod runs) and is a
+# no-op outside a mesh context (unit tests on one device).
+# ---------------------------------------------------------------------------
+_MESHES: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` the active mesh (the reference's ``with mesh:``).
+
+    Plain tensors that meet a DTensor inside count as replicated
+    (``implicit_replication``): the model's constants, ``arange``
+    positions and zero-filled buffers are the same on every rank."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    _MESHES.append(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def _active_mesh():
+    return _MESHES[-1] if _MESHES else None
+
+
+def _axes(mesh) -> dict:
+    """Axis name -> size of a ``DeviceMesh`` (or of anything with
+    ``mesh_dim_names`` and a ``shape`` tuple)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def batch_axes(mesh=None):
+    mesh = mesh if mesh is not None else _active_mesh()
+    if mesh is None:
+        return ("data",)
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def _axis_size(mesh, s):
+    if s is None:
+        return 1
+    if isinstance(s, tuple):
+        out = 1
+        for a in s:
+            out *= _axes(mesh)[a]
+        return out
+    return _axes(mesh)[s]
+
+
+def resolve_spec(mesh, shape, spec):
+    """Resolve a logical spec against a mesh *and* a shape: logical axes
+    missing from the mesh or not dividing the dimension are dropped.
+    Returns a tuple with the entries of the reference's
+    ``PartitionSpec``."""
+    names = set(mesh.mesh_dim_names)
+
+    def fix(s, dim):
+        if s == "batch":
+            s = tuple(a for a in ("pod", "data") if a in names)
+            if not s:
+                return None
+            s = s if len(s) > 1 else s[0]
+        elif isinstance(s, str):
+            s = s if s in names else None
+        elif isinstance(s, tuple):
+            t = tuple(a for a in s if a in names)
+            s = t if t else None
+        if s is None:
+            return None
+        if dim is not None and dim % _axis_size(mesh, s) != 0:
+            return None                      # uneven: leave replicated
+        return s
+
+    dims = list(shape) + [None] * (len(spec) - len(shape))
+    return tuple(fix(s, d) for s, d in zip(spec, dims))
+
+
+def spec_for(mesh, *spec) -> tuple:
+    """Resolve a logical spec to a concrete spec for ``mesh``."""
+    names = set(mesh.mesh_dim_names)
+
+    def fix(s):
+        if s == "batch":
+            ax = tuple(a for a in ("pod", "data") if a in names)
+            return ax if len(ax) > 1 else (ax[0] if ax else None)
+        if isinstance(s, str):
+            return s if s in names else None
+        if isinstance(s, tuple):
+            t = tuple(a for a in s if a in names)
+            return t if t else None
+        return s
+
+    return tuple(fix(s) for s in spec)
+
+
+def spec_to_placements(mesh, spec) -> list:
+    """One DTensor placement per mesh axis for a resolved spec: ``Shard(i)``
+    on each axis that names tensor dim ``i``, ``Replicate()`` on the
+    others and on any axis of size 1 (a 1-way split is no split).  A dim
+    split over several axes (``("pod", "data")``) is split over them
+    major to minor in mesh order, as ``PartitionSpec`` splits it.  E.g.
+    ``("batch", None)`` on a (pod, data, model) mesh gives
+    ``[Shard(0), Shard(0), Replicate()]``."""
+    from torch.distributed.tensor import Replicate, Shard
+    order = list(mesh.mesh_dim_names)
+    sizes = _axes(mesh)
+    out = [Replicate() for _ in order]
+    for dim, s in enumerate(spec):
+        if s is None:
+            continue
+        axes = s if isinstance(s, tuple) else (s,)
+        if [order.index(a) for a in axes] != sorted(order.index(a)
+                                                   for a in axes):
+            raise ValueError(f"spec {spec}: axes {axes} out of mesh order "
+                             f"{order}")
+        for a in axes:
+            if sizes[a] > 1:
+                out[order.index(a)] = Shard(dim)
+    return out
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def shard(x, *spec):
-    """The reference's sharding constraint; the identity on one card."""
-    return x
+    """with_sharding_constraint with mesh/shape-aware axis filtering.
+
+    spec entries: None, "model", "batch" (expands to present pod/data axes),
+    or explicit axis names / tuples.  Axes that don't divide the dimension
+    (e.g. 14 heads on a 16-way model axis) are silently dropped.  The
+    identity outside a mesh and on a plain tensor.
+    """
+    mesh = _active_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return x
+    return x.redistribute(mesh, spec_to_placements(
+        mesh, resolve_spec(mesh, x.shape, spec)))
+
+
+def shard_like(x, ref):
+    """``x`` on ``ref``'s placements when both are DTensors, else ``x``:
+    an updated cache leaf keeps its layout, as the reference's donated
+    cache keeps its sharding."""
+    if not (_is_dtensor(x) and _is_dtensor(ref)):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def per_shard(fn, *args, out_like):
+    """``fn(*args)`` on each rank's shards when ``out_like`` is a DTensor,
+    its output placed like ``out_like``; off a mesh ``fn(*args)``.  For
+    attention, which is independent across the batch and the heads it is
+    split on: DTensor would flatten the two split dims for its batched
+    matmuls, which torch 2.11 refuses.  Every tensor argument must be a
+    DTensor split as the computation needs."""
+    if not _is_dtensor(out_like):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    if not all(_is_dtensor(a) for a in args if isinstance(a, torch.Tensor)):
+        raise ValueError("per_shard: a plain tensor beside DTensors")
+    return local_map(
+        fn, out_placements=(tuple(out_like.placements),),
+        in_placements=tuple(tuple(a.placements) if _is_dtensor(a) else None
+                            for a in args),
+        device_mesh=out_like.device_mesh)(*args)
+
+
+def replicate(x):
+    """``x`` replicated on every axis of its mesh (a DTensor), else ``x``:
+    for an operand of an op that DTensor has no sharding strategy for.
+    Each call site is listed in ``PERF.md`` with the collective it adds."""
+    if not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from . import attention as attn
 from . import common, moe as moe_mod, rglru as rg, ssm as ssm_mod
-from .common import dense_init, gelu, rmsnorm, shard, silu
+from .common import dense_init, gelu, replicate, rmsnorm, shard, silu
 from .qweight import dq, tree_leaves, tree_map
 
 
@@ -140,15 +140,17 @@ def _block_apply(params, h, cfg, btype, positions, mode, cache,
             h = h + y
 
     elif btype == "ssm":
-        y, c = ssm_mod.ssm_apply(params["ssm"], x, cfg,
-                                 cache=cache.get("ssm") if cache else None)
+        y, c = ssm_mod.ssm_apply(
+            params["ssm"], x, cfg,
+            cache=cache["ssm"] if mode == "decode" else None)
         if mode != "train":
             new_cache["ssm"] = c
         h = h + y
 
     elif btype == "rec":
-        y, c = rg.rglru_apply(params["rec"], x, cfg,
-                              cache=cache.get("rec") if cache else None)
+        y, c = rg.rglru_apply(
+            params["rec"], x, cfg,
+            cache=cache["rec"] if mode == "decode" else None)
         if mode != "train":
             new_cache["rec"] = c
         h = h + y
@@ -193,6 +195,15 @@ def _unstack(tree):
         return tree_map(lambda _: next(it), tree)
 
     return [layer(i) for i in range(len(cols[0]))]
+
+
+def _positions(x):
+    """int32 ``arange(S)`` for each row of ``x`` (B, S, ...), in ``x``'s
+    layout: batch-sharded with it on a mesh, fake with it in a dry-run
+    (a plain arange would be the whole (B, S) on every rank)."""
+    rows = x if x.ndim == 2 else x[:, :, 0]
+    return torch.zeros_like(rows, dtype=torch.int32) + torch.arange(
+        x.shape[1], dtype=torch.int32, device=x.device)
 
 
 _aten = torch.ops.aten
@@ -295,7 +306,12 @@ class LM:
     def _embed(self, params, tokens=None, embeds=None):
         if embeds is not None:
             return embeds
-        e = dq(params["embed"])[tokens].to(torch.bfloat16)
+        # a gather from a vocab-sharded table has no DTensor strategy, so
+        # the table is replicated first (an all-gather on "model");
+        # ``F.embedding``'s backward DTensor places, an indexed read's
+        # (an accumulating ``index_put``) it does not
+        e = torch.nn.functional.embedding(
+            tokens, replicate(dq(params["embed"]))).to(torch.bfloat16)
         return shard(e, "batch", None, None)
 
     def _head(self, params, h):
@@ -317,10 +333,8 @@ class LM:
     def _forward(self, params, tokens, embeds, positions, mode, caches,
                  enc_out=None, enc_pos=None):
         cfg = self.cfg
-        b, s = (tokens if tokens is not None else embeds).shape[:2]
         if positions is None:
-            positions = torch.arange(s, dtype=torch.int32,
-                                     device=self.device).expand(b, s)
+            positions = _positions(tokens if tokens is not None else embeds)
         h = self._embed(params, tokens, embeds)
         unit_caches = caches["unit"] if caches is not None else None
         h, new_unit_caches, aux = self._run_unit(
@@ -355,8 +369,9 @@ class LM:
         return not any(t in ("ssm", "rec")
                        for t in (*self.unit, *self.rest))
 
-    def init_cache(self, batch: int, capacity: int):
-        cfg, dev = self.cfg, self.device
+    def init_cache(self, batch: int, capacity: int, device=None):
+        """Zero decode caches on ``device`` (``None``: the model's)."""
+        cfg, dev = self.cfg, device or self.device
         one_unit = {f"b{i}": _block_cache(cfg, t, batch, capacity, dev)
                     for i, t in enumerate(self.unit)}
         unit_cache = tree_map(
@@ -369,7 +384,9 @@ class LM:
     def prefill(self, params, tokens=None, embeds=None, capacity=None,
                 enc_out=None, enc_pos=None):
         b, s = (tokens if tokens is not None else embeds).shape[:2]
-        caches = self.init_cache(b, capacity or s)
+        # a prefill writes its caches anew (a recurrent layer starts from
+        # zeros): only their shapes are read, so they are made on "meta"
+        caches = self.init_cache(b, capacity or s, device="meta")
         logits, caches, _ = self._forward(params, tokens, embeds, None,
                                           "prefill", caches,
                                           enc_out, enc_pos)
@@ -390,14 +407,18 @@ class LM:
         tokens = batch["tokens"]
         enc_out = enc_pos = None
         if self.cfg.is_encdec:
-            b, ss = batch["src_embeds"].shape[:2]
-            enc_pos = torch.arange(ss, dtype=torch.int32,
-                                   device=self.device).expand(b, ss)
+            enc_pos = _positions(batch["src_embeds"])
             enc_out = self.encode(params, batch["src_embeds"], enc_pos)
         embeds = batch.get("embeds")
         logits, aux = self.apply(params, tokens=tokens, embeds=embeds,
                                  enc_out=enc_out, enc_pos=enc_pos)
         targets = tokens[:, 1:].long()
         lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-        nll = -torch.gather(lp, -1, targets[..., None])[..., 0]
+        # take_along_axis(lp, targets) as a masked sum over the vocab:
+        # exact (one term and zeros), and its backward keeps lp's layout
+        # on a mesh, where a gather's backward scatters into zeros of the
+        # global shape on every rank
+        hit = torch.arange(lp.shape[-1], device=lp.device) \
+            == targets[..., None]
+        nll = -torch.sum(torch.where(hit, lp, 0.0), dim=-1)
         return torch.mean(nll) + 0.01 * aux

@@ -61,12 +61,16 @@ def _dispatch(xc, gate_c, eidx_c, e, k, cap):
     tok = torch.arange(tc, device=dev).repeat_interleave(k)
     order = torch.argsort(fe, stable=True)
     se, stok = fe[order], tok[order]
-    counts = torch.bincount(fe, minlength=e)
+    # bincount(fe, minlength=e) with a static shape (fe < e), which fake
+    # tensors and DTensor can trace
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add(
+        0, fe, torch.ones_like(fe))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(tc * k, device=dev) - starts[se]
     keep = rank < cap
     slot = se * cap + torch.where(keep, rank, 0)
-    buf = torch.zeros((e * cap, d), dtype=xc.dtype, device=dev)
+    # ``new_zeros`` follows ``xc`` (fake in a dry-run, a DTensor on a mesh)
+    buf = xc.new_zeros((e * cap, d))
     buf = buf.index_add(0, slot, torch.where(keep[:, None], xc[stok], 0))
     return buf.reshape(e, cap, d), (order, keep, slot, fg)
 
@@ -81,10 +85,9 @@ def _combine(y_c, meta, tc, k, dtype):
                           ye * fg[order][:, None].to(dtype), 0)
     # sorted position of each (token, choice) pair; per token, ascending
     # sorted position is the reference's scatter order
-    sorted_at = torch.empty_like(order)
-    sorted_at[order] = torch.arange(order.numel(), device=order.device)
+    sorted_at = torch.argsort(order)          # order's inverse permutation
     by_token = torch.sort(sorted_at.reshape(tc, k), dim=1).values
-    out = torch.zeros((tc, d), dtype=dtype, device=y_c.device)
+    out = y_c.new_zeros((tc, d), dtype=dtype)
     for j in range(k):
         out = out + contrib[by_token[:, j]]
     return out

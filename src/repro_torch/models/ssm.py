@@ -68,7 +68,9 @@ def ssm_apply(params, x, cfg, *, cache=None, chunk: int = 256):
                                conv_state)
     xi = silu(xi)
 
-    dbc = xi @ dq(params["x_proj"])
+    # DTensor (torch 2.11) cannot feed this product's model-split sum to
+    # the dt matmul: it is reduced here (an all-reduce on "model")
+    dbc = shard(xi @ dq(params["x_proj"]), "batch", None, None)
     dt_r = dbc[..., :dtr]
     Bm = dbc[..., dtr:dtr + st].to(torch.float32)
     Cm = dbc[..., dtr + st:].to(torch.float32)

@@ -9,6 +9,12 @@ Leaf ``i`` of the tree, in the JAX package's leaf order, is stored as
 uint16 (npz has no bf16); python scalars are stored as the 0-d arrays
 ``np.asarray`` makes of them.  So a checkpoint written by either package
 loads in the other bit for bit.
+
+On a mesh a DTensor leaf is saved as its full tensor (``full_tensor()``,
+a collective: every rank calls ``save`` or ``AsyncSaver.submit``) and
+only rank 0 of the process group writes; ``restore`` gives each rank its
+shard of the stored full tensor on the placements of ``like``'s leaf.
+So a run restores on another mesh, as after a node loss.
 """
 
 from __future__ import annotations
@@ -28,6 +34,19 @@ from .tree import tree_flatten, tree_map, tree_unflatten
 _BF16_TAG = "__bf16__"
 
 
+def _full(leaf):
+    """A tensor leaf whole: a DTensor's full tensor (a collective)."""
+    if hasattr(leaf, "full_tensor"):
+        return leaf.detach().full_tensor()
+    return leaf
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _array(leaf):
     """``(name prefix, numpy array)`` of one leaf."""
     if isinstance(leaf, torch.Tensor):
@@ -41,14 +60,17 @@ def _array(leaf):
 def save(ckpt_dir, step: int, tree, extra_meta: dict | None = None,
          keep: int = 3) -> str:
     ckpt_dir = pathlib.Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     final = ckpt_dir / f"step_{step:08d}"
+    leaves, treedef = tree_flatten(tree)
+    leaves = [_full(x) for x in leaves]
+    if not _writer():
+        return str(final)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
     tmp = ckpt_dir / f".tmp_step_{step:08d}_{os.getpid()}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    leaves, treedef = tree_flatten(tree)
     arrays = {}
     for i, leaf in enumerate(leaves):
         prefix, a = _array(leaf)
@@ -74,7 +96,7 @@ def _snapshot(leaf):
     tensor cannot reach (``.cpu()`` of a CPU tensor would be the tensor
     itself)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _full(leaf).detach().to("cpu", copy=True)
     return leaf
 
 
@@ -161,5 +183,10 @@ def restore(ckpt_dir, like, step: int | None = None):
             if tuple(a.shape) != tuple(leaf.shape):
                 raise ValueError(f"leaf {i}: stored shape {tuple(a.shape)}"
                                  f" != {tuple(leaf.shape)}")
-            out.append(a.to(device=leaf.device, dtype=leaf.dtype))
+            a = a.to(device=leaf.device, dtype=leaf.dtype)
+            if hasattr(leaf, "placements"):
+                from torch.distributed.tensor import distribute_tensor
+                a = distribute_tensor(a, leaf.device_mesh, leaf.placements,
+                                      src_data_rank=None)
+            out.append(a)
     return tree_unflatten(treedef, out), meta

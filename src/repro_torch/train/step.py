@@ -12,8 +12,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.common import replicate
 from . import optimizer as opt_mod
 from .tree import tree_flatten, tree_map, tree_unflatten
+
+
+def _placed_like(g, p):
+    """The gradient ``g`` on its parameter ``p``'s placements (a DTensor
+    on a mesh; anything else as it is)."""
+    if getattr(p, "placements", None) is None or \
+            tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def value_and_grad(loss_fn):
@@ -29,7 +39,8 @@ def value_and_grad(loss_fn):
             loss = loss_fn(tree_unflatten(treedef, xs), *args)
             gs = torch.autograd.grad(loss, xs, allow_unused=True,
                                      materialize_grads=True)
-        return loss.detach(), tree_unflatten(treedef, list(gs))
+        gs = [_placed_like(g, x) for g, x in zip(gs, xs)]
+        return replicate(loss.detach()), tree_unflatten(treedef, gs)
 
     return fn
 
@@ -48,9 +59,9 @@ def make_train_step(model, opt_cfg, accum: int = 1):
         else:
             micro = tree_map(lambda x: x.reshape(
                 (accum, x.shape[0] // accum) + x.shape[1:]), batch)
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = 0.0
+            grads = tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             for i in range(accum):
                 l, g = grad_fn(params, tree_map(lambda x: x[i], micro))
                 loss = loss + l
