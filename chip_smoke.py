@@ -44,6 +44,20 @@ through their public entry points:
   ``launch.train`` on a one-rank NCCL mesh against the mesh-free train
   step (losses, final state bit for bit).  It launches none of the four
   kernels;
+* the compiler's CSE pass: ``idot4x58``, ``idot8x28``, ``bf16_add`` and
+  ``bf16_mul`` at 512 rows, each compiled with and without the pass and
+  run on one block and on 512 blocks, bit for bit equal, with node
+  counts, trace time and per-call times; the CSE'd ``idot4x58`` graph
+  holds the ``repro_torch::lane_fold`` node and launches the kernel as
+  often as the eager function.  Every path above runs its long
+  programs (the int4 ``idot4x58`` of the main path, the fabric and the
+  serve probe among them) as CSE'd graphs, and the run fails if a trace
+  falls back to the un-CSE'd function;
+* the five examples (``examples/torch_*.py``) through ``main(argv)`` on
+  the card: quickstart, pim_matmul (``quant_matmul``,
+  ``popcount_matmul`` and ``lane_fold``), fabric_attention
+  (``lane_fold``), serve_lm, and train_lm at its 100m preset for 40
+  steps, failing at step 24 and resuming from the step-20 checkpoint;
 * the fabric: the same seven linears of layer 0 on 8 decode tokens
   through ``fused_linear_apply`` with ``PimConfig(mode="fabric")`` at
   W4A4 (every round launch of 512 blocks folds through ``lane_fold``);
@@ -64,10 +78,12 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import dataclasses
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -236,6 +252,9 @@ def phase_kernel(rng):
     m = max(live) + 1
     x = torch.stack(planes[:m])
     kern = timings(lambda: bp.lane_fold_cuda(x, width))
+    # the same launch through the repro_torch::lane_fold operator, the
+    # binding the engine's graphs and eager calls use
+    op = timings(lambda: torch.ops.repro_torch.lane_fold(x, width))
     plain = timings(lambda: bp.lane_fold_torch(planes, width), reps=20)
     nbytes = (m * lanes * words + width * words) * 4
     # word operations of the adds: a full adder (5 ops) per live plane,
@@ -245,6 +264,7 @@ def phase_kernel(rng):
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     stats = {"max_abs_err": max_err, "ms": kern["ms"],
              "plain_ms": plain["ms"], "event_ms": kern["event_ms"],
+             "op_ms": op["ms"], "op_event_ms": op["event_ms"],
              "plain_event_ms": plain["event_ms"],
              "bound_ms": max(bytes_ms, ops_ms),
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -279,6 +299,7 @@ def fold_at_fabric_shape(rng):
     m = max(live) + 1
     x = torch.stack(planes[:m])
     kern = timings(lambda: bp.lane_fold_cuda(x, width))
+    op = timings(lambda: torch.ops.repro_torch.lane_fold(x, width))
     plain = timings(lambda: bp.lane_fold_torch(planes, width), reps=10,
                     graph_reps=5)
     nbytes = (m * lanes * words + width * words) * 4
@@ -286,7 +307,8 @@ def fold_at_fabric_shape(rng):
     bms, bby = bound_ms(nbytes, ops, INT32_OPS_PER_S)
     return {"shape": [m, lanes, words, width], "planes_given": planes_given,
             "max_abs_err": err, "ms": kern["ms"],
-            "event_ms": kern["event_ms"], "plain_ms": plain["ms"],
+            "event_ms": kern["event_ms"], "op_ms": op["ms"],
+            "op_event_ms": op["event_ms"], "plain_ms": plain["ms"],
             "plain_event_ms": plain["event_ms"], "bound_ms": bms,
             "bound_by": bby, "bytes": nbytes, "ops": ops}
 
@@ -1412,6 +1434,132 @@ def phase_packed_vs_bool(rng):
 
 
 # ---------------------------------------------------------------------------
+# The compiler's CSE pass on the card
+# ---------------------------------------------------------------------------
+#: the programs ``phase_cse`` holds CSE'd against un-CSE'd at 512 rows,
+#: each at its default interior: the main path's and the fabric's int4
+#: program (packed, through ``lane_fold``), int8 (bool) and the bf16
+#: add and multiply (bool and packed)
+CSE_PROGRAMS = {
+    "idot4x58": lambda: programs.idot(4, rows=512, tuples=58)[0],
+    "idot8x28": lambda: programs.idot(8, rows=512, tuples=28)[0],
+    "bf16_add x8": lambda: programs.bf16_add(rows=512)[0],
+    "bf16_mul x8": lambda: programs.bf16_mul(rows=512)[0],
+}
+CSE_BLOCKS = 512
+LANE_FOLD_OP = "repro_torch::lane_fold"
+
+
+def wall_ms(fn, reps=10, warmup=2):
+    """Min over ``reps`` single calls of the host's wall time (ms) from
+    the call to the end of its device work (a synchronize)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def same_state(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_cse(rng, dev=None, blocks=CSE_BLOCKS, progs=CSE_PROGRAMS):
+    """``compile_program(cse=True)`` against ``cse=False`` on the card
+    for :data:`CSE_PROGRAMS` on one 512 x 40 block and through
+    ``execute_blocks`` on :data:`CSE_BLOCKS` blocks: bit for bit equal,
+    ``0 < eqns_after <= eqns_before``, the trace time and each way's
+    per-call wall and CUDA-event time.  The CSE'd ``idot4x58`` graph
+    holds the ``repro_torch::lane_fold`` node, and one call of it
+    launches the kernel as often as an eager call of the lowered
+    function."""
+    dev = engine.resolve_device(dev)
+    engine.clear_compile_cache()        # every graph below is traced here
+    out = {}
+    for name, make in progs.items():
+        prog = make()
+        st = engine.CRState(*(torch.from_numpy(
+            rng.integers(0, 2, shape).astype(bool)).to(dev)
+            for shape in ((512, 40), (40,), (40,))))
+        raw = engine.compile_program(prog, 512, 40, cse=False)
+        cse = engine.compile_program(prog, 512, 40, cse=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gm = cse.trace(dev)
+        trace_s = time.perf_counter() - t0
+        if not isinstance(gm, torch.fx.GraphModule):
+            raise AssertionError(f"{name}: the CSE trace fell back")
+        stats = gm._cse_stats
+        if not 0 < stats["eqns_after"] <= stats["eqns_before"]:
+            raise AssertionError(f"{name}: CSE stats {stats}")
+        want, got = raw(st), cse(st)
+        if not same_state(want, got):
+            raise AssertionError(f"{name}: CSE'd graph != un-CSE'd")
+        fold_nodes = sum(1 for n in gm.graph.nodes
+                         if n.target is torch.ops.repro_torch.lane_fold
+                         .default)
+        torch.cuda.synchronize()
+        f0 = bp.lane_fold_cuda.launches
+        raw(st)
+        torch.cuda.synchronize()
+        f1 = bp.lane_fold_cuda.launches
+        cse(st)
+        torch.cuda.synchronize()
+        f2 = bp.lane_fold_cuda.launches
+        eager_folds, graph_folds = f1 - f0, f2 - f1
+        packed = engine.default_packed(prog)
+        if not eager_folds == graph_folds == fold_nodes:
+            raise AssertionError(
+                f"{name}: {fold_nodes} {LANE_FOLD_OP} nodes, folds per "
+                f"call eager {eager_folds}, graph {graph_folds}")
+        row = {"cycles": len(prog.expand()), "packed": packed, **stats,
+               "trace_s": trace_s, "lane_fold_nodes": fold_nodes,
+               "lane_fold_per_call": graph_folds}
+        for way, fn in (("raw", raw), ("cse", cse)):
+            row[way] = {"wall_ms": wall_ms(lambda: fn(st)),
+                        "event_ms": time_ms(lambda: fn(st), reps=10,
+                                            warmup=2)}
+        # the same program through execute_blocks on CSE_BLOCKS blocks,
+        # traced at that budget
+        bst = engine.CRState(*(torch.from_numpy(
+            rng.integers(0, 2, shape).astype(bool)).to(dev)
+            for shape in ((blocks, 512, 40), (blocks, 40), (blocks, 40))))
+        bwant = engine.execute_blocks(prog, bst, cse=False)
+        traced = engine.cse_counts["traced"]
+        t0 = time.perf_counter()
+        bgot = engine.execute_blocks(prog, bst)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        bstats = engine.last_cse_stats
+        if bstats is None or engine.cse_counts["traced"] != traced + 1:
+            raise AssertionError(f"{name}: the blocks trace fell back")
+        if not same_state(bwant, bgot):
+            raise AssertionError(f"{name}: CSE'd blocks != un-CSE'd")
+        row["blocks"] = {"blocks": blocks, **bstats,
+                         "first_call_s": first_s}
+        for way, on in (("raw", False), ("cse", True)):
+            def call(on=on):
+                return engine.execute_blocks(prog, bst, cse=on)
+            row["blocks"][way] = {"wall_ms": wall_ms(call, reps=3,
+                                                     warmup=1),
+                                  "event_ms": time_ms(call, reps=3,
+                                                      warmup=1)}
+        out[name] = row
+    if not out["idot4x58"]["lane_fold_nodes"]:
+        raise AssertionError(f"the CSE'd idot4x58 graph holds no "
+                             f"{LANE_FOLD_OP} node")
+    emit({"phase": "cse_vs_raw", "ok": True, "rows": 512, "cols": 40,
+          "programs": out,
+          "removed": {k: v["removed"] for k, v in out.items()}})
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The serve engine over the model zoo
 # ---------------------------------------------------------------------------
 #: prompt lengths of the serve phase's requests: more requests than the
@@ -2259,6 +2407,147 @@ def phase_launch(seed, dev=None, cfg=None, cells=LAUNCH_CELLS, seq=32768,
             "kernel_launches": (before, after)}
 
 
+# ---------------------------------------------------------------------------
+# The examples
+# ---------------------------------------------------------------------------
+#: the port's examples as ``phase_examples`` runs them: ``main(argv)`` on
+#: the card (the default device); train_lm at the 100m preset, its
+#: "paper-scale end-to-end target", failing at step 24 of 40
+EXAMPLE_ARGS = {
+    "torch_quickstart": (), "torch_pim_matmul": (),
+    "torch_fabric_attention": (), "torch_serve_lm": (),
+    "torch_train_lm": ("--preset", "100m", "--steps", "40"),
+}
+#: examples whose output is a pure function of their numpy seeds: the
+#: card must print what the CPU prints, line for line
+EXAMPLES_EXACT = ("torch_quickstart", "torch_fabric_attention")
+#: the reference's bounds on a packed linear's error (PERF.md section 2)
+PIM_REL_ERR = {8: 0.03, 4: 0.15}
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, argv):
+    """``main(argv)`` of an example with its stdout captured: (result,
+    stdout lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = load_example(name).main(list(argv))
+    return res, buf.getvalue().splitlines()
+
+
+def reset_launches():
+    for c in (bp.lane_fold_cuda, bsm.quant_matmul_cuda,
+              bsm.popcount_matmul_cuda, fa.flash_attention_cuda):
+        c.launches = 0
+
+
+def check_example(name, res, lines, launches):
+    """The checks of one example's run on the card beyond its own
+    asserts; returns what the phase reports of it."""
+    if name == "torch_quickstart":
+        if res["bf16_products"] != [4.5, -1.125]:
+            raise AssertionError(f"quickstart bf16: {res['bf16_products']}")
+        return {}
+    if name == "torch_pim_matmul":
+        if res["popcount_vs_ref"] != 0 or not res["cram_exact"]:
+            raise AssertionError(f"pim_matmul: {res}")
+        for bits, bound in PIM_REL_ERR.items():
+            if not res["packed"][bits]["rel_err"] <= bound:
+                raise AssertionError(f"pim_matmul W{bits}: {res['packed']}")
+        want = {"quant_matmul": 2, "popcount_matmul": 1}
+        if any(launches[k] != v for k, v in want.items()) \
+                or not launches["lane_fold"]:
+            raise AssertionError(f"pim_matmul launches {launches}")
+        return {"rel_err": {b: r["rel_err"] for b, r in
+                            res["packed"].items()}}
+    if name == "torch_fabric_attention":
+        if not launches["lane_fold"]:
+            raise AssertionError("fabric_attention never launched "
+                                 "lane_fold")
+        return {"scores_max_abs_err": res["scores_max_abs_err"]}
+    if name == "torch_serve_lm":
+        if sorted(res["outs"]) != list(range(6)) or any(
+                len(o) != 8 for o in res["outs"].values()):
+            raise AssertionError(f"serve_lm: {res['outs']}")
+        return {"outs": res["outs"], "w8_agree": res["w8_agree"],
+                "tree_bytes": res["bytes"]}
+    if name == "torch_train_lm":
+        losses = [float(v) for v in re.findall(
+            r"\[train\] step \d+ loss ([\d.]+)", "\n".join(lines))]
+        if res["restarts"] != 1 or res["end"] != 40 or len(losses) != 4 \
+                or not all(np.isfinite(losses)) \
+                or not any("[fault] step 24" in ln for ln in lines) \
+                or not any("restored step 20" in ln for ln in lines):
+            raise AssertionError(f"train_lm: {res} {lines}")
+        return {"restarts": res["restarts"], "end": res["end"],
+                "losses_at_10_20_30_40": losses,
+                "step_ms_median": float(np.median(res["step_times"])) * 1e3,
+                "steps_run": len(res["step_times"])}
+    raise KeyError(name)
+
+
+def phase_examples(args=EXAMPLE_ARGS):
+    """The five port examples through ``main(argv)`` on the card: each
+    one's asserts, the checks of :func:`check_example`, its wall time
+    and the four kernels' launches (counters set to 0 just before each
+    example and read just after).  The numpy-seeded examples print on
+    the card what they print with ``--device cpu``."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in args.items():
+            if name == "torch_train_lm":
+                argv = (*argv, "--ckpt-dir", os.path.join(tmp, "ckpt"))
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            res, lines = run_example(name, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_launches()
+            row = {"argv": list(argv), "wall_s": wall, "launches": launches,
+                   "lines": len(lines),
+                   **check_example(name, res, lines, launches)}
+            if name in EXAMPLES_EXACT:
+                _, cpu = run_example(name, ("--device", "cpu"))
+                if cpu != lines:
+                    raise AssertionError(f"{name}: the card printed other "
+                                         f"lines than the CPU")
+                row["same_lines_as_cpu"] = True
+            out[name] = row
+    emit({"phase": "examples", "ok": True, "examples": out})
+    return out
+
+
+#: CSE graphs traced in each phase of the run (``cse_checked``)
+CSE_TRACED = {}
+
+
+def cse_checked(phase, *args):
+    """Run ``phase(*args)``; fail when one of its CSE traces fell back to
+    the un-CSE'd function, and record how many it traced."""
+    before = dict(engine.cse_counts)
+    out = phase(*args)
+    fell = engine.cse_counts["fallback"] - before["fallback"]
+    if fell:
+        raise AssertionError(f"{phase.__name__}: {fell} CSE trace(s) fell "
+                             f"back to the un-CSE'd function")
+    CSE_TRACED[phase.__name__] = engine.cse_counts["traced"] \
+        - before["traced"]
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2286,23 +2575,28 @@ def main():
           "tensor_core_sass": sass,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     rng = np.random.default_rng(args.seed)
-    stats = phase_kernel(rng)
-    launches, _, _ = phase_main_path(rng)
-    phase_profile(rng)
-    phase_int8_bf16(rng)
-    phase_executors(rng)
-    gemm = phase_gemm(rng)
-    flash = phase_flash(rng)
-    phase_flash_model(rng)
-    linear_launches, _ = phase_pim_linear(args.seed)
-    fabric_launches, _ = phase_fabric_layer(args.seed)
-    serve_launches = phase_serve(args.seed)["lane_fold_launches"]
-    phase_train(args.seed)
-    phase_fabric_dtypes(rng)
-    phase_fabric_faults(rng)
-    fuzz_launches = phase_fuzz()
-    phase_packed_vs_bool(rng)
-    phase_launch(args.seed)
+    stats = cse_checked(phase_kernel, rng)
+    launches, _, _ = cse_checked(phase_main_path, rng)
+    cse_checked(phase_profile, rng)
+    cse_checked(phase_int8_bf16, rng)
+    cse_checked(phase_executors, rng)
+    cse_checked(phase_cse, rng)
+    gemm = cse_checked(phase_gemm, rng)
+    flash = cse_checked(phase_flash, rng)
+    cse_checked(phase_flash_model, rng)
+    linear_launches, _ = cse_checked(phase_pim_linear, args.seed)
+    fabric_launches, _ = cse_checked(phase_fabric_layer, args.seed)
+    serve_launches = cse_checked(phase_serve,
+                                 args.seed)["lane_fold_launches"]
+    cse_checked(phase_train, args.seed)
+    cse_checked(phase_fabric_dtypes, rng)
+    cse_checked(phase_fabric_faults, rng)
+    fuzz_launches = cse_checked(phase_fuzz)
+    cse_checked(phase_packed_vs_bool, rng)
+    cse_checked(phase_launch, args.seed)
+    examples = cse_checked(phase_examples)
+    emit({"phase": "cse_traces", "ok": True, "traced": CSE_TRACED,
+          "fallbacks": 0, "smoke_s": time.perf_counter() - t0})
     kernels = [{
         "name": "lane_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/lane_fold.cu",
@@ -2314,9 +2608,12 @@ def main():
         "launches_by_path": {"main_path_int4": launches,
                              "fabric_qwen2_layer0": fabric_launches,
                              "serve_qwen2_0_5b": serve_launches,
-                             "fuzz_replay": fuzz_launches},
+                             "fuzz_replay": fuzz_launches,
+                             **{f"example_{k}": v["launches"]["lane_fold"]
+                                for k, v in examples.items()}},
+        "op_ms": stats["op_ms"],
         "at_fabric_shape": {k: stats["fabric_shape"][k] for k in (
-            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "shape", "max_abs_err", "ms", "op_ms", "plain_ms", "bound_ms",
             "bound_by")}}]
     for name, line, st in (
             ("quant_matmul", "bitserial_matmul.py:106", gemm["quant_matmul"]),
@@ -2328,6 +2625,10 @@ def main():
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": f"src/repro/kernels/{line}",
             "launches": linear_launches[name],
+            "launches_by_path": {
+                "pim_linear_qwen2_layer0": linear_launches[name],
+                **{f"example_{k}": v["launches"][name]
+                   for k, v in examples.items()}},
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
             "bound_by": st["bound_by"], "library_ms": st["library_ms"]})

@@ -36,6 +36,8 @@ interior's int32 integers wrap exactly as the reference's do.
 from __future__ import annotations
 
 import dataclasses
+import operator
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -1078,6 +1080,14 @@ def _run_flat(ctx, items, arr, store, carry, tag):
     return written, m.carry, m.tag
 
 
+def _consts_for(state, consts: dict) -> dict:
+    """The constants cache a call may use: the lowered function's own
+    for a call on plain tensors; a fresh dict for a call under a tracer
+    (fake or proxy tensors), so no traced value ever enters the cache
+    that later plain calls read."""
+    return consts if type(state.array) is torch.Tensor else {}
+
+
 def _io(state, cols: int, packed: bool, packed_io: bool):
     """Enter the interior's representation: (arr, carry, tag)."""
     if packed and not packed_io:
@@ -1102,12 +1112,14 @@ def _lower_flat(program: isa.Program, rows: int, cols: int, packed: bool,
     consts: dict = {}
 
     def fn(state):
-        ctx = _Ctx(cols, packed, state.array.device, consts)
+        ctx = _Ctx(cols, packed, state.array.device,
+                   _consts_for(state, consts))
         arr, carry, tag = _io(state, cols, packed, packed_io)
         written, carry, tag = _run_flat(ctx, items, arr, {}, carry, tag)
         arr = _scatter(ctx, arr, written)
         return _out(state, ctx, arr, carry, tag, packed_io)
 
+    fn.consts = consts
     return fn
 
 
@@ -1429,7 +1441,8 @@ def _lower_multi(program: isa.Program, rows: int, cols: int, packed: bool,
     consts: dict = {}
 
     def fn(state):
-        ctx = _Ctx(cols, packed, state.array.device, consts)
+        ctx = _Ctx(cols, packed, state.array.device,
+                   _consts_for(state, consts))
         arr, carry, tag = _io(state, cols, packed, packed_io)
         store: Dict[int, torch.Tensor] = {}
         for kind, payload in lowered:
@@ -1442,6 +1455,7 @@ def _lower_multi(program: isa.Program, rows: int, cols: int, packed: bool,
                                             store)
         return _out(state, ctx, arr, carry, tag, packed_io)
 
+    fn.consts = consts
     return fn
 
 
@@ -1454,7 +1468,9 @@ def lower(program: isa.Program, rows: int, cols: int, packed: bool, *,
     state whose fields are already column-packed int32 words; callers
     that chain launches keep state packed end-to-end and skip the
     per-launch pack/unpack ladders entirely.  The fn runs on the device
-    of the state it is given and never modifies that state.
+    of the state it is given and never modifies that state; its
+    ``consts`` attribute is the cache of device constants it keeps
+    between calls (see :func:`_consts_for`).
     """
     if packed_io:
         packed = True
@@ -1467,3 +1483,239 @@ def lower(program: isa.Program, rows: int, cols: int, packed: bool, *,
     if segs is not None:
         return _lower_multi(program, rows, cols, packed, segs, packed_io)
     return _lower_flat(program, rows, cols, packed, packed_io)
+
+
+# ---------------------------------------------------------------------------
+# Graph-level CSE, the counterpart of the reference's jaxpr pass.  Big
+# lowered programs (the float sequences, the 512-row idot programs)
+# trace to graphs with repeated pure ops -- identical selects, mask
+# extractions, pack/unpack ladders.  The function is traced once with
+# ``make_fx`` on fake tensors (nothing runs on the device, no kernel
+# launches), the graph's call nodes are deduplicated in one forward
+# walk keyed on (target, canonicalised args, frozen kwargs), and the
+# resulting ``GraphModule`` replays only what is left: no Python
+# lowering logic, fewer ops.  Anything the walk cannot prove safe to key
+# (mutation, aliasing of a mutated value, uninitialised or random
+# factories, unknown argument types) is simply kept, so correctness
+# never depends on coverage.
+# ---------------------------------------------------------------------------
+_SCALARS = (bool, int, str, type(None), torch.dtype, torch.device,
+            torch.layout, torch.memory_format)
+
+
+def _freeze(v):
+    """Hashable snapshot of a node argument; None = give up.
+
+    Nodes key by identity (earlier duplicates are already replaced);
+    scalars key with their type, and floats by their exact bits, so
+    ``1`` and ``True`` or ``0.0`` and ``-0.0`` never collide."""
+    if isinstance(v, torch.fx.Node):
+        return ("node", v)
+    if isinstance(v, float):
+        return ("float", v.hex())
+    if isinstance(v, _SCALARS):
+        return (type(v).__name__, v)
+    if isinstance(v, (tuple, list)):
+        parts = tuple(_freeze(x) for x in v)
+        return None if any(p is None for p in parts) else ("seq", parts)
+    if isinstance(v, dict):
+        items = tuple((k, _freeze(x)) for k, x in sorted(v.items()))
+        return None if any(p is None for _, p in items) else ("dict", items)
+    return None
+
+
+def _schema(node):
+    t = node.target
+    return t._schema if isinstance(t, torch._ops.OpOverload) else None
+
+
+def _is_view(schema) -> bool:
+    """An op whose output aliases an input (a view)."""
+    return any(r.alias_info is not None for r in schema.returns)
+
+
+def _uninitialised_or_random(target) -> bool:
+    """``empty*`` / ``new_empty*`` factories (their values are whatever
+    memory held) and ops that draw from a generator."""
+    base = target._schema.name.split("::")[-1]
+    return (base.startswith(("empty", "new_empty"))
+            or torch.Tag.nondeterministic_seeded in target.tags)
+
+
+def _mutated_aliases(graph) -> set:
+    """Nodes whose value some op in ``graph`` writes in place, with every
+    view of them and every node they are views of."""
+    parent = {}
+
+    def root(n):
+        while n in parent:
+            n = parent[n]
+        return n
+
+    written = []
+    for node in graph.nodes:
+        schema = _schema(node)
+        if schema is None:
+            continue
+        if _is_view(schema) and node.args and \
+                isinstance(node.args[0], torch.fx.Node):
+            parent[node] = node.args[0]
+        if schema.is_mutable:
+            for arg, val in zip(schema.arguments, node.args):
+                if arg.alias_info is not None and arg.alias_info.is_write \
+                        and isinstance(val, torch.fx.Node):
+                    written.append(val)
+            for name, val in node.kwargs.items():
+                arg = next((a for a in schema.arguments if a.name == name),
+                           None)
+                if arg is not None and arg.alias_info is not None \
+                        and arg.alias_info.is_write \
+                        and isinstance(val, torch.fx.Node):
+                    written.append(val)
+    roots = {root(n) for n in written}
+    return {n for n in graph.nodes if root(n) in roots}
+
+
+def _node_key(node, mutated: set, graph_mutates: bool):
+    """The CSE key of a call node, or None when it must be kept."""
+    if node.op != "call_function" or node in mutated:
+        return None
+    target = node.target
+    if target is operator.getitem:
+        pass                            # picks an output: pure
+    elif isinstance(target, torch._ops.OpOverload):
+        schema = target._schema
+        if schema.is_mutable or _uninitialised_or_random(target):
+            return None
+        # a view shares its input's memory: two equal views hold equal
+        # values only while nothing in the graph writes memory
+        if _is_view(schema) and graph_mutates:
+            return None
+    else:
+        return None
+    if any(isinstance(a, torch.fx.Node) and a in mutated
+           for a in node.all_input_nodes):
+        return None
+    args, kwargs = _freeze(node.args), _freeze(dict(node.kwargs))
+    if args is None or kwargs is None:
+        return None
+    return (target, args, kwargs)
+
+
+def n_call_nodes(gm) -> int:
+    """Call nodes of a traced graph (the pass's unit of count)."""
+    return sum(1 for n in gm.graph.nodes if n.op == "call_function")
+
+
+def cse_graph(gm):
+    """Common-subexpression-eliminate a traced ``GraphModule`` in place.
+
+    One forward walk: each call node is keyed on (target, canonicalised
+    args, frozen kwargs); a node whose key was seen is replaced by the
+    earlier node everywhere and erased.  Then dead code is eliminated
+    and the module recompiled.  Returns ``(gm, n_removed)``, the count
+    of call nodes that went (the duplicates and what only they used).
+    """
+    graph = gm.graph
+    before = n_call_nodes(gm)
+    mutated = _mutated_aliases(graph)
+    graph_mutates = any(
+        (s := _schema(n)) is not None and s.is_mutable for n in graph.nodes)
+    table: Dict = {}
+    for node in list(graph.nodes):
+        key = _node_key(node, mutated, graph_mutates)
+        if key is None:
+            continue
+        hit = table.get(key)
+        if hit is not None:
+            node.replace_all_uses_with(hit)
+            graph.erase_node(node)
+        else:
+            table[key] = node
+    graph.eliminate_dead_code()
+    graph.lint()
+    gm.recompile()
+    return gm, before - n_call_nodes(gm)
+
+
+def _python_call(node):
+    """The Python binding that computes ``node``'s aten op on its own
+    arguments, or None to keep the ``OpOverload``.
+
+    A graph calls ``torch.ops.aten.<op>.<overload>``, which parses its
+    arguments against the schema on every call: 1-3 us more per op than
+    the ``torch.<op>`` / ``Tensor.<op>`` bindings an eager run goes
+    through, which on ~1000-op graphs costs more host time than the
+    pass removes.  The binding of the same name dispatches to the same
+    aten op.  Two ops have none: ``_to_copy`` of a dtype alone (which a
+    trace records only for a real conversion) is ``Tensor.to``, and a
+    unit-step ``slice`` of the traced static shape is ``narrow``."""
+    t = node.target
+    if t.namespace != "aten":
+        return None
+    name = t._schema.name.split("::")[1]
+    args, kwargs = node.args, node.kwargs
+    if name == "_to_copy":
+        src = args[0].meta["val"].dtype if len(args) == 1 else None
+        if set(kwargs) == {"dtype"} and kwargs["dtype"] != src:
+            return torch.Tensor.to, args, kwargs
+        return None
+    if name == "slice":
+        # aten::slice.Tensor(self, dim=0, start=None, end=None, step=1)
+        x, dim, start, end, step = (*args, *(0, None, None, 1)[len(args) - 1:])
+        if kwargs or step != 1:
+            return None
+        r = range(x.meta["val"].shape[dim])[start:end]
+        return torch.narrow, (x, dim, r.start, len(r)), {}
+    f = (getattr(torch.Tensor, name, None) if name.startswith("__")
+         else getattr(torch._C._VariableFunctions, name, None))
+    return None if f is None else (f, args, kwargs)
+
+
+def bind_python_calls(gm):
+    """Point each aten call node of ``gm`` at its Python binding (see
+    :func:`_python_call`) and recompile; the graph computes the same
+    ops on the same arguments.  Returns ``gm``."""
+    for node in gm.graph.nodes:
+        if node.op == "call_function" and \
+                isinstance(node.target, torch._ops.OpOverload):
+            call = _python_call(node)
+            if call is not None:
+                node.target, node.args, node.kwargs = call
+    gm.recompile()
+    return gm
+
+
+def apply_cse(fn, *example_args):
+    """``fn`` as a traced, CSE'd ``GraphModule``.
+
+    ``example_args`` are the tensors (or pytrees of tensors, such as a
+    ``CRState``) of a call to trace; ``fn`` is traced on fake tensors of
+    their shapes, dtypes and devices, so it computes nothing and
+    launches no kernel.  After :func:`cse_graph` the calls are bound to
+    their Python bindings (:func:`bind_python_calls`).  The graph holds
+    the devices its factories and constants were traced on: call it on
+    those devices only.  On ANY failure the original ``fn`` is returned
+    untouched, with a warning that names the error -- the pass is an
+    optimization, never a correctness dependency.  The returned module
+    carries a ``_cse_stats`` dict (``eqns_before``, ``eqns_after``,
+    ``removed``: call nodes) for benchmarks.
+    """
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    try:
+        # traced through ``*args`` so defaulted parameters of ``fn``
+        # stay out of the graph's signature
+        gm = make_fx(lambda *args: fn(*args),
+                     tracing_mode="fake")(*example_args)
+        before = n_call_nodes(gm)
+        gm, removed = cse_graph(gm)
+        bind_python_calls(gm)
+    except Exception as e:                              # noqa: BLE001
+        warnings.warn(f"CSE trace failed ({type(e).__name__}: {e}); "
+                      f"running the un-CSE'd function", RuntimeWarning,
+                      stacklevel=2)
+        return fn
+    gm._cse_stats = {"eqns_before": before, "eqns_after": before - removed,
+                     "removed": removed}
+    return gm

@@ -15,7 +15,9 @@ Three executors (``run(..., executor=...)`` dispatches):
 * :func:`execute_compiled` (``"compiled"``) -- the stream lowered by
   :mod:`compiler` into a specialized function (batched row writes,
   optional 32-column int32 word packing, the lane fold on the CUDA
-  kernel), built once per (program, geometry) and cached.
+  kernel), built once per (program, geometry) and cached; long
+  programs run as a traced graph after a CSE pass
+  (:class:`CSEProgram`).
 
 Every executor runs on the device of the state it is given and leaves
 that state unchanged: ``unroll`` and ``scan`` copy the array once and
@@ -290,10 +292,11 @@ class _LRUCache:
 COMPILE_CACHE_LIMIT = 64
 _COMPILE_CACHE = _LRUCache(COMPILE_CACHE_LIMIT)
 
-# Programs whose expanded stream is at least this many micro-ops resolve
-# ``cse=None`` to True.  The flag only keeps the reference's cache key:
-# the reference runs a jaxpr CSE pass there, the port has no such pass
-# and runs the same function either way.
+# Programs whose expanded stream is at least this many micro-ops go
+# through the graph-level CSE pass (see compiler.apply_cse): the
+# lowered function is traced once per device into a deduplicated
+# ``GraphModule`` that replays without the lowering's Python.  Small
+# programs skip it -- the trace would cost more than it saves.
 CSE_MIN_CYCLES = 1500
 
 # Packed-by-default policy, as in the reference: programs up to this many
@@ -323,6 +326,16 @@ def canonical_block_budget(blocks: int) -> int:
     return blocks
 
 
+#: stats of the most recent CSE trace ({"eqns_before", "eqns_after",
+#: "removed"}: call nodes of the graph) -- benchmark introspection;
+#: None until a pass runs, and None after a trace that failed.
+last_cse_stats = None
+
+#: CSE traces since import: ``"traced"`` graphs, and ``"fallback"``
+#: traces that failed and left the un-CSE'd function in their place
+cse_counts = {"traced": 0, "fallback": 0}
+
+
 def set_compile_cache_limit(limit: int) -> None:
     """Re-bound the compiled-program cache (evicts LRU down to fit)."""
     if limit < 1:
@@ -344,6 +357,53 @@ def _use_cse(program: isa.Program, cse) -> bool:
     return len(program.expand()) >= CSE_MIN_CYCLES
 
 
+def _cse_pass(fn, state):
+    """Run the graph CSE pass over ``fn`` traced at ``state`` (see
+    compiler.apply_cse); records :data:`last_cse_stats` and
+    :data:`cse_counts`."""
+    global last_cse_stats
+    out = compiler.apply_cse(fn, state)
+    last_cse_stats = getattr(out, "_cse_stats", None)
+    cse_counts["traced" if last_cse_stats else "fallback"] += 1
+    return out
+
+
+class CSEProgram:
+    """A lowered function run through its CSE'd graphs.
+
+    A traced graph holds the device of its factories and constants, so
+    one graph is traced per device, at the first call on that device or
+    by :meth:`trace`, and a graph never runs on another device.
+    ``graphs`` maps the device (with its index: ``cuda`` means the
+    current card) to the graph, or after a failed trace to ``fn``
+    itself.  ``shape`` and ``dtype`` are those of the state's ``array``
+    (carry and tag drop its row axis).
+    """
+
+    def __init__(self, fn, shape, dtype):
+        self.fn = fn                    # the lowered, un-CSE'd function
+        self.shape, self.dtype = tuple(shape), dtype
+        self.graphs = {}
+
+    def trace(self, device):
+        """The graph for ``device``, traced now if it is not yet."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        gm = self.graphs.get(device)
+        if gm is None:
+            lanes = self.shape[:-2] + self.shape[-1:]
+            example = CRState(
+                torch.zeros(self.shape, dtype=self.dtype, device=device),
+                *(torch.zeros(lanes, dtype=self.dtype, device=device)
+                  for _ in range(2)))
+            gm = self.graphs[device] = _cse_pass(self.fn, example)
+        return gm
+
+    def __call__(self, state):
+        return self.trace(state.array.device)(state)
+
+
 def compile_program(program: isa.Program, rows: int = 512, cols: int = 40,
                     *, packed: bool | None = None, cse: bool | None = None):
     """Compile ``program`` for a fixed geometry into ``fn(CRState) ->
@@ -353,9 +413,10 @@ def compile_program(program: isa.Program, rows: int = 512, cols: int = 40,
     tensor ops, on the device of the state it is given.  Results are
     cached module-wide in a bounded LRU keyed on the program's
     fingerprint, the geometry and the resolved ``packed`` and ``cse``
-    flags.  ``cse`` changes nothing in the port (see
-    :data:`CSE_MIN_CYCLES`); it is kept so the API and the cache key
-    match the reference.
+    flags.  ``cse=None`` enables the graph-level CSE pass for programs
+    of >= :data:`CSE_MIN_CYCLES` micro-ops: the result is then a
+    :class:`CSEProgram`, whose graph for a device is traced at its first
+    call there (or by its ``trace``).
     """
     use_cse = _use_cse(program, cse)
     if packed is None:
@@ -364,8 +425,10 @@ def compile_program(program: isa.Program, rows: int = 512, cols: int = 40,
            program.fingerprint())
     fn = _COMPILE_CACHE.get(key)
     if fn is None:
-        fn = _COMPILE_CACHE.put(key, compiler.lower(program, rows, cols,
-                                                    packed))
+        fn = compiler.lower(program, rows, cols, packed)
+        if use_cse:
+            fn = CSEProgram(fn, (rows, cols), torch.bool)
+        fn = _COMPILE_CACHE.put(key, fn)
     return fn
 
 
@@ -421,7 +484,7 @@ def _from_wide(wide: CRState, blocks: int, cols: int) -> CRState:
 def execute_blocks(program: isa.Program, states: CRState,
                    executor: str = "compiled",
                    *, packed: bool | None = None,
-                   faults=None) -> CRState:
+                   faults=None, cse: bool | None = None) -> CRState:
     """Run the same program on many blocks: states have a leading block dim.
 
     The compiled path exploits that every micro-op is column-parallel:
@@ -437,7 +500,9 @@ def execute_blocks(program: isa.Program, states: CRState,
     None = pristine SRAM) injects seeded bit flips / dead-block garbage
     into the row-states before dispatch and parity-scrubs on the model's
     cadence; injection happens on the host before lowering, so packed
-    and bool interiors see identical corruption.
+    and bool interiors see identical corruption.  ``cse`` is resolved
+    as in :func:`compile_program` (None: long programs run CSE'd; a
+    faulted run takes None); the graph is traced at the block budget.
     """
     if faults is not None and faults.active:
         from . import faults as faults_mod
@@ -448,7 +513,7 @@ def execute_blocks(program: isa.Program, states: CRState,
         if packed is None:
             packed = default_packed(program)
         budget = canonical_block_budget(blocks)
-        use_cse = _use_cse(program, None)
+        use_cse = _use_cse(program, cse)
         key = ("blocks", program.name, budget, rows, cols, bool(packed),
                use_cse, program.fingerprint())
         fn = _COMPILE_CACHE.get(key)
@@ -458,6 +523,9 @@ def execute_blocks(program: isa.Program, states: CRState,
             def wide_fn(st: CRState, blocks=budget, cols=cols):
                 return _from_wide(inner(_to_wide(st)), blocks, cols)
 
+            if use_cse:                 # traced at the budget's shape
+                wide_fn = CSEProgram(wide_fn, (budget, rows, cols),
+                                     torch.bool)
             fn = _COMPILE_CACHE.put(key, wide_fn)
         if budget != blocks:
             pad = budget - blocks
@@ -522,8 +590,10 @@ def compile_packed(program: isa.Program, rows: int, cols: int,
     key = ("pio", program.name, rows, cols, use_cse, program.fingerprint())
     fn = _COMPILE_CACHE.get(key)
     if fn is None:
-        fn = _COMPILE_CACHE.put(key, compiler.lower(
-            program, rows, cols, True, packed_io=True))
+        fn = compiler.lower(program, rows, cols, True, packed_io=True)
+        if use_cse:
+            fn = CSEProgram(fn, (rows, compiler.n_words(cols)), torch.int32)
+        fn = _COMPILE_CACHE.put(key, fn)
     return fn
 
 
@@ -562,5 +632,7 @@ def run_chain(programs, state: CRState, *, cse: bool | None = None,
                 pst = body(pst)
             return unpack_state(pst, cols)
 
+        if cse:
+            chain_fn = CSEProgram(chain_fn, (rows, cols), torch.bool)
         fn = _COMPILE_CACHE.put(key, chain_fn)
     return fn(state)

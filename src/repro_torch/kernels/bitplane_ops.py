@@ -13,8 +13,10 @@ the block's carry chain).
   lane (tuple) axis of lane-shaped planes: a *positional popcount*, the
   inner loop of every dot-product accumulator.  Packed planes on a CUDA
   device run the hand-written kernel (:func:`lane_fold_cuda`,
-  ``csrc/lane_fold.cu``); planes on the CPU, and bool planes anywhere,
-  run the plain torch carry-save tree (:func:`lane_fold_torch`).
+  ``csrc/lane_fold.cu``) through the ``repro_torch::lane_fold``
+  operator (:func:`lane_fold_op`), which a traced graph holds as one
+  node; planes on the CPU, and bool planes anywhere, run the plain
+  torch carry-save tree (:func:`lane_fold_torch`).
 
 Both paths are exact (mod ``2**width``) and bit-identical.
 """
@@ -30,7 +32,7 @@ from . import build
 
 __all__ = [
     "planes_add", "lane_fold", "lane_fold_torch", "lane_fold_cuda",
-    "use_kernel_fold", "LANE_FOLD_MAX_WIDTH",
+    "lane_fold_op", "use_kernel_fold", "LANE_FOLD_MAX_WIDTH",
 ]
 
 #: widest fold the CUDA kernel takes (accumulator planes in registers);
@@ -200,6 +202,27 @@ def lane_fold_cuda(x: torch.Tensor, width: int) -> torch.Tensor:
 lane_fold_cuda.launches = 0
 
 
+# The kernel as an operator a traced graph can hold.  ``lane_fold_cuda``
+# writes its output from C through raw pointers, which a tracer cannot
+# see: a graph traced through it would keep only the ``torch.empty``
+# and replay an uninitialised tensor.  Called through this op, a trace
+# records one ``repro_torch::lane_fold`` node (its fake implementation
+# gives the shape), and every call of the graph runs the op's body,
+# which launches the kernel and counts the launch.  The body looks
+# ``lane_fold_cuda`` up when it runs, so a stand-in for the kernel
+# (the CPU rehearsals of the smoke's phases) serves graphs as well.
+@torch.library.custom_op("repro_torch::lane_fold", mutates_args=())
+def lane_fold_op(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``lane_fold_cuda(x, width)`` as the ``repro_torch::lane_fold``
+    operator: launches the kernel on CUDA words, raises otherwise."""
+    return lane_fold_cuda(x, width)
+
+
+@lane_fold_op.register_fake
+def _lane_fold_fake(x, width):
+    return x.new_empty((width, x.shape[-1]), dtype=torch.int32)
+
+
 def use_kernel_fold(device: torch.device, packed: bool) -> bool:
     """Selection rule: packed planes on a CUDA device run the kernel, at
     every size; CPU planes and bool (unpacked) planes run the tree."""
@@ -211,9 +234,10 @@ def lane_fold(planes, width: int, *, packed: bool):
 
     ``planes`` entries are ``(T, W)`` tensors or None (known zero); the
     result list may contain None entries likewise.  Dispatches per
-    :func:`use_kernel_fold`.  The kernel gets the planes up to the last
-    live one (it zero-extends the rest), so known-zero top planes are
-    neither built nor read.
+    :func:`use_kernel_fold`; the kernel route calls the
+    ``repro_torch::lane_fold`` operator.  The kernel gets the planes up
+    to the last live one (it zero-extends the rest), so known-zero top
+    planes are neither built nor read.
     """
     live = [i for i, p in enumerate(planes[:width]) if p is not None]
     if not live:
@@ -228,5 +252,5 @@ def lane_fold(planes, width: int, *, packed: bool):
             zero = torch.zeros_like(first) if zero is None else zero
             p = zero
         stacked.append(p)
-    out = lane_fold_cuda(torch.stack(stacked), width)
+    out = torch.ops.repro_torch.lane_fold(torch.stack(stacked), width)
     return [out[i] for i in range(width)]

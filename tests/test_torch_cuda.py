@@ -390,3 +390,50 @@ def test_fabric_on_card_runs_the_kernel_and_equals_cpu(card, bits):
     np.testing.assert_array_equal(np.asarray(got.out, np.int64),
                                   x.astype(np.int64) @ w)
     assert (folds > 0) == (bits == 4)
+
+
+def test_lane_fold_op_launches_and_counts_per_call(card):
+    """``repro_torch::lane_fold`` on CUDA words launches the kernel once a
+    call, equal to the plain tree; a CPU tensor is refused."""
+    rng = np.random.default_rng(70)
+    planes = _planes(rng, 8, 57, 160, None, False, card)
+    x = torch.stack(planes)
+    before = bp.lane_fold_cuda.launches
+    got = torch.ops.repro_torch.lane_fold(x, 15)
+    assert bp.lane_fold_cuda.launches == before + 1
+    want = bp.lane_fold_torch(planes, 15)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_words(g, 160), _words(w, 160))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        torch.ops.repro_torch.lane_fold(x.cpu(), 15)
+
+
+def test_cse_graph_on_the_card_launches_like_eager(card):
+    """The CSE'd ``idot4x58`` graph traced on the card holds one fold
+    node, equals the eager lowered function and the CPU's graph, and
+    launches the kernel once a call, as the eager function does; the
+    trace launches nothing."""
+    from repro_torch.core import engine, programs
+
+    rng = np.random.default_rng(71)
+    prog, _ = programs.idot(4, rows=512)
+    fields = [rng.integers(0, 2, s).astype(bool)
+              for s in ((512, 40), (40,), (40,))]
+    st = engine.state_from_numpy(*fields, device=card)
+    engine.clear_compile_cache()
+    fn = engine.compile_program(prog, 512, 40, cse=True)
+    before = bp.lane_fold_cuda.launches
+    gm = fn.trace(card)
+    assert bp.lane_fold_cuda.launches == before
+    assert engine.last_cse_stats["removed"] > 0
+    assert sum(n.target is torch.ops.repro_torch.lane_fold.default
+               for n in gm.graph.nodes) == 1
+    eager = fn.fn(st)
+    assert bp.lane_fold_cuda.launches == before + 1
+    got = fn(st)
+    assert bp.lane_fold_cuda.launches == before + 2
+    assert fn.graphs == {st.array.device: gm}   # the call ran this graph
+    cpu = fn(engine.state_from_numpy(*fields, device="cpu"))
+    for g, e, c in zip(got, eager, cpu):
+        assert torch.equal(g, e) and torch.equal(g.cpu(), c)
+    assert [k.type for k in fn.graphs] == ["cuda", "cpu"]

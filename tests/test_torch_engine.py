@@ -374,3 +374,283 @@ def test_bitplane_layout_helpers_match_reference():
     out = bitplane.store(arr, 2, planes[:4])
     assert not arr.any()                       # input left unchanged
     assert torch.equal(bitplane.load(out, 2, 4), planes[:4])
+
+
+# ---------------------------------------------------------------------------
+# The graph-level CSE pass
+# ---------------------------------------------------------------------------
+def test_cse_pass_bit_identical_and_smaller():
+    """compile_program(cse=True) routes through the graph-level CSE
+    pass: never more call nodes, identical results, and a distinct cache
+    key from the un-CSE'd variant; both equal numpy and the reference's
+    compile_program(cse=False)."""
+    from repro.core import harness as ref_harness
+
+    rng = np.random.default_rng(0)
+    engine.clear_compile_cache()
+    prog, lay = programs.idot(8, rows=128)
+    rprog, _ = ref_programs.idot(8, rows=128)
+    a = rng.integers(0, 256, (lay.tuples, 8), dtype=np.uint64)
+    b = rng.integers(0, 256, (lay.tuples, 8), dtype=np.uint64)
+    img = harness.pack_state(lay, {"a": a, "b": b}, 8)
+    state = harness.make_torch_state(img, "cpu")
+    f_raw = engine.compile_program(prog, 128, 8, cse=False)
+    f_cse = engine.compile_program(prog, 128, 8, cse=True)
+    assert f_raw is not f_cse          # resolved flag is in the cache key
+    assert len(engine._COMPILE_CACHE) == 2
+    assert isinstance(f_cse, engine.CSEProgram)
+    gm = f_cse.trace("cpu")
+    assert isinstance(gm, torch.fx.GraphModule)
+    assert f_cse.graphs == {torch.device("cpu"): gm}
+    stats = engine.last_cse_stats
+    assert stats is not None and stats == gm._cse_stats
+    assert 0 < stats["eqns_after"] <= stats["eqns_before"]
+    raw, cse = f_raw(state).array.numpy(), f_cse(state).array.numpy()
+    np.testing.assert_array_equal(raw, cse)
+    np.testing.assert_array_equal(harness.unpack_acc(cse, lay),
+                                  (a * b).sum(axis=0))
+    want = ref_engine.compile_program(rprog, 128, 8, cse=False)(
+        ref_harness.make_jax_state(img))
+    np.testing.assert_array_equal(cse, np.asarray(want.array))
+
+
+def test_cse_graph_pass_direct():
+    """The raw pass: duplicate pure computations collapse; the CSE'd
+    graph's outputs equal the original function's exactly."""
+    from repro_torch.core import compiler
+
+    def f(x):
+        a = (x + 1.0) * 2.0
+        b = (x + 1.0) * 2.0          # duplicate of a
+        return a + b, a - b
+
+    g = compiler.apply_cse(f, torch.zeros(8))
+    assert g._cse_stats["removed"] >= 2
+    x = torch.arange(8, dtype=torch.float32)
+    for got, want in zip(g(x), f(x)):
+        assert torch.equal(got, want)
+
+
+def test_cse_graph_calls_the_python_bindings():
+    """After the pass, aten calls go through their Python bindings:
+    unit-step slices of every bound form become ``narrow`` with the
+    same shape, strides and offset; a real dtype conversion becomes
+    ``Tensor.to``; what has no binding keeps its ``OpOverload``.  The
+    outputs equal the function's."""
+    from repro_torch.core import compiler
+
+    def f(x):
+        return (x[:, 2:-1], x[:, -3:], x[1:100], x[:, 5:2], x[:, ::2],
+                x.to(torch.int64), x[0] >> 1, torch.select(x, 0, 3) & x[2])
+
+    x = torch.arange(60, dtype=torch.int32).reshape(6, 10)
+    g = compiler.apply_cse(f, torch.zeros(6, 10, dtype=torch.int32))
+    targets = [n.target for n in g.graph.nodes if n.op == "call_function"]
+    assert targets.count(torch.narrow) == 4
+    assert torch.Tensor.to in targets
+    assert torch.ops.aten.slice.Tensor in targets         # the step-2 slice
+    assert not any(t in (torch.ops.aten.select.int,
+                         torch.ops.aten._to_copy.default) for t in targets)
+    for got, want in zip(g(x), f(x)):
+        assert torch.equal(got, want) and got.dtype == want.dtype
+        assert got.stride() == want.stride()
+        assert got.storage_offset() == want.storage_offset()
+
+
+def test_cse_graph_keeps_mutation_uninitialised_and_random():
+    """What the walk must not merge: a value written in place later
+    (and what reads it), ``empty`` buffers, random draws; equal
+    scalars of another type or sign stay apart."""
+    from repro_torch.core import compiler
+
+    def f(x):
+        a = x * 2.0
+        b = x * 2.0                  # a is written below: not merged
+        a.add_(1.0)
+        e1, e2 = torch.empty_like(x), torch.empty_like(x)
+        r1, r2 = torch.rand_like(x), torch.rand_like(x)
+        return a, b, e1, e2, r1, r2, x + 0.0, x + -0.0, x + 1, x + True
+
+    g = compiler.apply_cse(f, torch.zeros(4))
+    calls = [n.target for n in g.graph.nodes if n.op == "call_function"]
+    assert calls.count(torch.mul) == 2      # the aten ops' Python bindings
+    assert calls.count(torch.empty_like) == 2
+    assert calls.count(torch.rand_like) == 2
+    assert calls.count(torch.add) == 4
+    assert calls.count(torch.ops.aten.add_.Tensor) == 1
+    x = torch.arange(4, dtype=torch.float32)
+    out = g(x)
+    assert torch.equal(out[0], x * 2 + 1) and torch.equal(out[1], x * 2)
+    assert not torch.equal(out[4], out[5])
+
+    def g_views(x):                   # no mutation: equal views merge
+        return x[1:3] + 1, x[1:3] + 1
+
+    h = compiler.apply_cse(g_views, torch.zeros(4))
+    assert h._cse_stats["removed"] == 2
+
+
+def test_cse_trace_failure_falls_back_and_says_so():
+    """A function the tracer cannot follow (a data-dependent Python
+    branch) comes back untouched; the engine records no stats, counts
+    the fallback and warns."""
+    from repro_torch.core import compiler
+
+    def f(x):
+        return x + 1 if bool(x.sum() > 0) else x - 1
+
+    x = torch.ones(3)
+    with pytest.warns(RuntimeWarning, match="CSE trace failed"):
+        assert compiler.apply_cse(f, x) is f
+    n = engine.cse_counts["fallback"]
+    with pytest.warns(RuntimeWarning, match="CSE trace failed"):
+        assert engine._cse_pass(f, x) is f
+    assert engine.last_cse_stats is None
+    assert engine.cse_counts["fallback"] == n + 1
+
+
+_CSE_PROGRAMS = {
+    "bf16_add": lambda p: p.bf16_add(rows=512),
+    "bf16_mul": lambda p: p.bf16_mul(rows=512),
+    "idot4x58": lambda p: p.idot(4, rows=512),
+    "idot8x28": lambda p: p.idot(8, rows=512),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CSE_PROGRAMS))
+def test_cse_programs_at_512_rows_bit_identical(name):
+    """The main path's and the float programs at 512 rows, each at its
+    default interior: the CSE'd graph removes nodes and equals the
+    un-CSE'd function bit for bit on a random state."""
+    rng = np.random.default_rng(23)
+    prog, _ = _CSE_PROGRAMS[name](programs)
+    st = _port(_np_state(rng, 512, 40))
+    raw = engine.compile_program(prog, 512, 40, cse=False)(st)
+    fn = engine.compile_program(prog, 512, 40, cse=True)
+    fn.trace("cpu")
+    stats = engine.last_cse_stats
+    assert stats["removed"] > 0
+    assert 0 < stats["eqns_after"] <= stats["eqns_before"]
+    for got, want in zip(fn(st), raw):
+        assert torch.equal(got, want)
+
+
+def test_cse_trace_leaves_the_constants_cache_real():
+    """A trace runs the lowered function on fake tensors: its device
+    constants go to a dict of its own, and the function's cache keeps
+    only the real tensors of plain calls."""
+    from repro_torch.core import compiler
+
+    prog, _ = programs.idot(4, rows=512)
+    raw = compiler.lower(prog, 512, 40, True)
+    st = engine.make_state(512, 40, device="cpu")
+    gm = compiler.apply_cse(raw, st)               # trace before any call
+    assert isinstance(gm, torch.fx.GraphModule) and raw.consts == {}
+    want = raw(st)
+    n = len(raw.consts)
+    assert n > 0
+    assert compiler.apply_cse(raw, st) is not raw  # a trace after it
+    assert len(raw.consts) == n
+    assert all(type(t) is torch.Tensor for t in raw.consts.values())
+    for got, w in zip(gm(st), raw(st)):
+        assert torch.equal(got, w)
+    for got, w in zip(want, raw(st)):
+        assert torch.equal(got, w)
+
+
+def test_cse_blocks_and_chain_match_reference():
+    """execute_blocks (a CSE'd program, traced at the block budget; with
+    ``cse=False`` the lowered function, cached apart) and
+    run_chain(cse=True) equal the reference's outputs."""
+    rng = np.random.default_rng(24)
+    prog, _ = programs.idot(4, rows=512)
+    rprog, _ = ref_programs.idot(4, rows=512)
+    assert engine._use_cse(prog, None)
+    fields = _np_state(rng, 512, 8, 3)
+    got = engine.execute_blocks(prog, _port(fields))
+    assert engine.last_cse_stats is not None
+    _assert_same(got, ref_engine.execute_blocks(rprog, _ref(fields), "scan"),
+                 "blocks")
+    raw = engine.execute_blocks(prog, _port(fields), cse=False)
+    for g, r in zip(got, raw):
+        assert torch.equal(g, r)
+    kinds = {k[6]: type(f) for k, f in engine._COMPILE_CACHE._d.items()
+             if k[0] == "blocks" and k[2] == 4 and k[-1] == prog.fingerprint()}
+    assert kinds[True] is engine.CSEProgram
+    assert kinds[False] is not engine.CSEProgram
+    gens = [lambda p: p.iadd(8, rows=128), lambda p: p.imul(4, rows=128),
+            lambda p: p.iadd(8, rows=128)]
+    one = _np_state(rng, 128, 8)
+    engine.last_cse_stats = None
+    got = engine.run_chain([g(programs)[0] for g in gens], _port(one),
+                           cse=True)
+    assert engine.last_cse_stats["eqns_after"] > 0
+    want = _ref(one)
+    for g in gens:
+        want = ref_engine.run(g(ref_programs)[0], want, "unroll")
+    _assert_same(got, want, "chain")
+    pst = engine.pack_state(_port(one))
+    fn = engine.compile_packed(gens[1](programs)[0], 128, 8, cse=True)
+    out = engine.unpack_state(fn(pst), 8)
+    _assert_same(out, ref_engine.run(gens[1](ref_programs)[0], _ref(one),
+                                     "unroll"), "packed io")
+
+
+def test_cse_graph_holds_the_fold_op_and_counts_like_eager(monkeypatch):
+    """On the kernel route (packed planes; here a counting stand-in for
+    the CUDA wrapper and the route forced on the CPU) the CSE'd idot4
+    graph holds one ``repro_torch::lane_fold`` node per eager fold, and a
+    call launches as many folds as an eager call: the trace itself
+    launches none.  The route is patched before the compile, so the
+    graph is traced on it."""
+    from repro_torch.kernels import bitplane_ops as bp
+
+    def fold(x, width):
+        fold.launches += 1
+        out = bp.lane_fold_torch(list(x), width)
+        return torch.stack([torch.zeros_like(x[0, 0]) if p is None else p
+                            for p in out])
+
+    rng = np.random.default_rng(25)
+    prog, _ = programs.idot(4, rows=512)
+    st = _port(_np_state(rng, 512, 40))
+    engine.clear_compile_cache()
+    tree = engine.compile_program(prog, 512, 40)(st)
+    fold.launches = 0
+    monkeypatch.setattr(bp, "lane_fold_cuda", fold)
+    monkeypatch.setattr(bp, "use_kernel_fold", lambda device, packed: packed)
+    engine.clear_compile_cache()
+    fn = engine.compile_program(prog, 512, 40)
+    gm = fn.trace("cpu")
+    assert fold.launches == 0
+    assert fn.graphs == {torch.device("cpu"): gm}
+    ops = [n for n in gm.graph.nodes
+           if n.target is torch.ops.repro_torch.lane_fold.default]
+    eager = fn.fn(st)
+    per_call = fold.launches
+    assert len(ops) == per_call >= 1
+    got = fn(st)
+    assert fold.launches == 2 * per_call
+    for g, e, t in zip(got, eager, tree):
+        assert torch.equal(g, e) and torch.equal(g, t)
+    assert fn.graphs == {torch.device("cpu"): gm}
+
+
+def test_lane_fold_op_fake_gives_the_plain_shape_and_dtype():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import bitplane_ops as bp
+
+    rng = np.random.default_rng(26)
+    for m, lanes, words, width in ((3, 5, 7, 6), (8, 57, 160, 15)):
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, (m, lanes, words),
+                                          dtype=np.int64).astype(np.int32))
+        plain = torch.stack([torch.zeros(words, dtype=torch.int32)
+                             if p is None else p
+                             for p in bp.lane_fold_torch(list(x), width)])
+        with FakeTensorMode() as mode:
+            out = torch.ops.repro_torch.lane_fold(mode.from_tensor(x), width)
+        assert tuple(out.shape) == tuple(plain.shape) == (width, words)
+        assert out.dtype == plain.dtype == torch.int32
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        torch.ops.repro_torch.lane_fold(x, width)
