@@ -2111,6 +2111,26 @@ LAUNCH_BATCHES = (128, 64, 32, 16, 8)
 LAUNCH_MEM_SHARE = 0.8
 LAUNCH_PEAK_RTOL = 0.10         # the real peak against the estimate
 LAUNCH_TRAIN_STEPS = 4
+#: the production cells' per-rank temp (GB) and collectives by kind (MB)
+#: while the port replicated the vocabulary: the table all-gathered before
+#: the lookup, the loss on all-gathered float32 logits (H100 80GB HBM3,
+#: 700.00 W, fake CUDA tensors); printed beside each cell
+LAUNCH_VOCAB_REPLICATED = {
+    ("decode_32k", False): {"temp_gb": 6.493, "collective_mb": {
+        "all-gather": 272.27, "all-reduce": 0.69}},
+    ("prefill_32k", False): {"temp_gb": 30.052, "collective_mb": {
+        "all-reduce": 5637.14, "all-gather": 272.27}},
+    ("train_4k", False): {"temp_gb": 132.824, "collective_mb": {
+        "all-gather": 40300.85, "reduce-scatter": 18328.58,
+        "all-reduce": 12735.22, "all-to-all": 956.30}},
+    ("decode_32k", True): {"temp_gb": 3.246, "collective_mb": {
+        "all-gather": 272.27, "all-reduce": 0.34}},
+}
+#: with the vocabulary split as the reference keeps it: train_4k's
+#: per-rank temp, and its all-gather on the card (a CPU group records its
+#: all-to-all fallback as all-gather); decode and prefill gather nothing
+LAUNCH_TRAIN_TEMP_MAX = 48e9
+LAUNCH_TRAIN_GATHER_MAX = 500e6
 
 
 def train_log(stdout):
@@ -2135,7 +2155,12 @@ def phase_launch(seed, dev=None, cfg=None, cells=LAUNCH_CELLS, seq=32768,
     parts.  1: ``dryrun.lower_cell`` for qwen2-0.5b's ``cells`` on the
     (16, 16) and (2, 16, 16) meshes of a fake process group, fake tensors
     on the card's device type: each ok, on 256 or 512 ranks, with
-    collectives (d_ff 4864 splits on "model") and a temp.  2: the dry-run
+    collectives (d_ff 4864 splits on "model") and a temp, and the
+    vocabulary split as the reference keeps it: decode and prefill
+    gather nothing, train_4k holds at most :data:`LAUNCH_TRAIN_TEMP_MAX`
+    a rank (and gathers at most :data:`LAUNCH_TRAIN_GATHER_MAX` on the
+    card); each cell is reported beside
+    :data:`LAUNCH_VOCAB_REPLICATED`.  2: the dry-run
     of a one-card decode of ``cfg`` at ``seq`` positions, for each of
     ``batches`` until the estimated peak (arguments + temp) is under
     :data:`LAUNCH_MEM_SHARE` of ``mem_bytes`` (default: the card's); then
@@ -2181,6 +2206,17 @@ def phase_launch(seed, dev=None, cfg=None, cells=LAUNCH_CELLS, seq=32768,
                 and r["collective_bytes"] > 0
                 and mem["temp_size_in_bytes"] > 0):
             raise AssertionError(f"dry-run {shape} multi_pod={multi}: {r}")
+        gathered = r["collective_by_kind"]["all-gather"]
+        if shape == "train_4k":
+            kept = mem["temp_size_in_bytes"] <= LAUNCH_TRAIN_TEMP_MAX and (
+                not cuda or gathered <= LAUNCH_TRAIN_GATHER_MAX)
+        else:
+            kept = gathered == 0
+        if not kept:
+            raise AssertionError(f"dry-run {shape} multi_pod={multi}: the "
+                                 f"vocabulary is not kept split: temp "
+                                 f"{mem['temp_size_in_bytes']}, "
+                                 f"{r['collective_by_kind']}")
         production.append({
             "shape": shape, "multi_pod": multi, "status": r["status"],
             "chips": r["chips"], "trace_s": r["compile_s"],
@@ -2190,6 +2226,10 @@ def phase_launch(seed, dev=None, cfg=None, cells=LAUNCH_CELLS, seq=32768,
             "collective_bytes": r["collective_bytes"],
             "collective_by_kind": r["collective_by_kind"],
             "collective_ops": r["collective_ops"],
+            "per_rank_temp_gb": mem["temp_size_in_bytes"] / 1e9,
+            "collective_mb": {k: v / 1e6 for k, v in
+                              r["collective_by_kind"].items() if v},
+            "vocab_replicated": LAUNCH_VOCAB_REPLICATED.get((shape, multi)),
             "counted_flops": r["counted_flops"],
             "counted_bytes": r["counted_bytes"],
             "analytic_flops": r["analytic_flops"],

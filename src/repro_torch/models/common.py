@@ -192,6 +192,20 @@ def per_shard(fn, *args, out_like):
         device_mesh=out_like.device_mesh)(*args)
 
 
+def split_on(x, axis, dim):
+    """The index of mesh axis ``axis`` when ``x`` is a DTensor split along
+    ``dim`` on that axis and on no other, else ``None`` (a plain tensor,
+    a mesh without ``axis``, a 1-way axis, a dim left whole)."""
+    if not _is_dtensor(x) or axis not in x.device_mesh.mesh_dim_names:
+        return None
+    from torch.distributed.tensor import Shard
+    dim %= x.ndim
+    split = [i for i, p in enumerate(x.placements)
+             if isinstance(p, Shard) and p.dim % x.ndim == dim]
+    i = x.device_mesh.mesh_dim_names.index(axis)
+    return i if split == [i] else None
+
+
 def replicate(x):
     """``x`` replicated on every axis of its mesh (a DTensor), else ``x``:
     for an operand of an op that DTensor has no sharding strategy for.

@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from . import attention as attn
 from . import common, moe as moe_mod, rglru as rg, ssm as ssm_mod
-from .common import dense_init, gelu, replicate, rmsnorm, shard, silu
+from .common import dense_init, gelu, rmsnorm, shard, silu
 from .qweight import dq, tree_leaves, tree_map
 
 
@@ -230,6 +230,93 @@ def _remat(body, policy):
 
 
 # ---------------------------------------------------------------------------
+# The vocabulary split on the mesh: the lookup and the loss each rank
+# computes on its own rows of the table and columns of the logits, as the
+# reference's GSPMD program partitions them (no all-gather)
+# ---------------------------------------------------------------------------
+def _vocab_parallel_embedding(tokens, table, ax):
+    """``F.embedding(tokens, table)`` in bfloat16 for a table split by
+    rows on mesh axis ``ax``.  Each rank looks up its own rows (a token
+    it does not hold reads row 0, zeroed) and the result is ``Partial``
+    on ``ax``: the next ``shard`` sums it there.  One rank contributes
+    each row and the others zeros, so the sum is exact, in bfloat16.  The
+    table's gradient is each rank's own scatter, ``Partial`` on the axes
+    that split the tokens (the data-parallel sum), no collective on
+    ``ax``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    rows = table.to_local().shape[0]
+    start = mesh.get_local_rank(ax) * rows
+
+    def lookup(ids, w):
+        ids = ids - start
+        mine = (ids >= 0) & (ids < rows)
+        e = torch.nn.functional.embedding(torch.where(mine, ids, 0), w)
+        return torch.where(mine[..., None], e.to(torch.bfloat16), 0)
+
+    tok = tuple(tokens.placements)
+    out = tuple(Partial() if i == ax else p for i, p in enumerate(tok))
+    grad = tuple(Shard(0) if i == ax else
+                 Partial() if isinstance(p, Shard) else Replicate()
+                 for i, p in enumerate(tok))
+    return local_map(lookup, out_placements=(out,),
+                     in_placements=(tok, tuple(table.placements)),
+                     in_grad_placements=(tok, grad),
+                     device_mesh=mesh)(tokens, table)
+
+
+class _SplitNLL(torch.autograd.Function):
+    """Next-token NLL from this rank's columns ``[start, start + V/n)`` of
+    the float32 logits, the row max, the sum of exponentials and the
+    target's logit each all-reduced over ``group``; the gradient needs
+    no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, group):
+        import torch.distributed._functional_collectives as funcol
+
+        def all_reduce(x, op):
+            return funcol.wait_tensor(funcol.all_reduce(x, op, group))
+
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        hit = cols == (targets - start)[..., None]
+        m = all_reduce(logits.amax(-1), "max")
+        se = all_reduce(torch.exp(logits - m[..., None]).sum(-1), "sum")
+        # one column holds the target, the others add zeros: exact
+        t = all_reduce(torch.where(hit, logits, 0.0).sum(-1), "sum")
+        ctx.save_for_backward(logits, targets, m, se)
+        ctx.start = start
+        return -((t - m) - torch.log(se))
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, targets, m, se = ctx.saved_tensors
+        cols = torch.arange(logits.shape[-1], device=logits.device)
+        hit = cols == (targets - ctx.start)[..., None]
+        p = torch.exp(logits - m[..., None]) / se[..., None]
+        return (p - hit.to(p.dtype)) * g[..., None], None, None, None
+
+
+def _vocab_parallel_nll(logits, targets, ax):
+    """``-log_softmax(logits)[targets]`` for float32 logits split along the
+    vocabulary on mesh axis ``ax``, replicated there: the reference's
+    log-softmax as GSPMD partitions it (``_SplitNLL``)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    start = mesh.get_local_rank(ax) * logits.to_local().shape[-1]
+    out = tuple(Replicate() if i == ax else p
+                for i, p in enumerate(logits.placements))
+    targets = targets.redistribute(mesh, out)
+    return local_map(
+        lambda lg, tg: _SplitNLL.apply(lg, tg, start, (mesh, ax)),
+        out_placements=(out,),
+        in_placements=(tuple(logits.placements), out),
+        device_mesh=mesh)(logits, targets)
+
+
+# ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
 class LM:
@@ -306,12 +393,13 @@ class LM:
     def _embed(self, params, tokens=None, embeds=None):
         if embeds is not None:
             return embeds
-        # a gather from a vocab-sharded table has no DTensor strategy, so
-        # the table is replicated first (an all-gather on "model");
-        # ``F.embedding``'s backward DTensor places, an indexed read's
-        # (an accumulating ``index_put``) it does not
-        e = torch.nn.functional.embedding(
-            tokens, replicate(dq(params["embed"]))).to(torch.bfloat16)
+        table = dq(params["embed"])
+        ax = common.split_on(table, "model", 0)
+        if ax is not None:
+            e = _vocab_parallel_embedding(tokens, table, ax)
+        else:
+            e = torch.nn.functional.embedding(tokens, table).to(
+                torch.bfloat16)
         return shard(e, "batch", None, None)
 
     def _head(self, params, h):
@@ -413,12 +501,17 @@ class LM:
         logits, aux = self.apply(params, tokens=tokens, embeds=embeds,
                                  enc_out=enc_out, enc_pos=enc_pos)
         targets = tokens[:, 1:].long()
-        lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
-        # take_along_axis(lp, targets) as a masked sum over the vocab:
-        # exact (one term and zeros), and its backward keeps lp's layout
-        # on a mesh, where a gather's backward scatters into zeros of the
-        # global shape on every rank
-        hit = torch.arange(lp.shape[-1], device=lp.device) \
-            == targets[..., None]
-        nll = -torch.sum(torch.where(hit, lp, 0.0), dim=-1)
+        logits = logits[:, :-1].to(torch.float32)
+        ax = common.split_on(logits, "model", -1)
+        if ax is not None:
+            nll = _vocab_parallel_nll(logits, targets, ax)
+        else:
+            lp = torch.log_softmax(logits, dim=-1)
+            # take_along_axis(lp, targets) as a masked sum over the vocab:
+            # exact (one term and zeros), and its backward keeps lp's
+            # layout on a mesh, where a gather's backward scatters into
+            # zeros of the global shape on every rank
+            hit = torch.arange(lp.shape[-1], device=lp.device) \
+                == targets[..., None]
+            nll = -torch.sum(torch.where(hit, lp, 0.0), dim=-1)
         return torch.mean(nll) + 0.01 * aux

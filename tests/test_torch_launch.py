@@ -43,6 +43,7 @@ from repro.models.model import LM as RefLM  # noqa: E402
 from repro.models.qweight import quantize_tree as ref_quantize  # noqa
 from repro.train import data as ref_data  # noqa: E402
 from repro.train import optimizer as ref_opt  # noqa: E402
+from repro.train.step import make_train_step as ref_train_step  # noqa
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import analysis, dryrun, perf, shapes  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
@@ -50,6 +51,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import (data_parallel_size,  # noqa: E402
                                      make_mesh, make_production_mesh)
 from repro_torch.models import common  # noqa: E402
+from repro_torch.models import model as model_mod  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.qweight import quantize_tree  # noqa: E402
@@ -136,12 +138,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _spawn(world, *args):
-    """Run ``torch_launch_dist.rank_main`` on ``world`` gloo ranks."""
+def _spawn(world, *args, target=torch_launch_dist.rank_main):
+    """Run ``target`` (a ``torch_launch_dist`` worker) on ``world`` gloo
+    ranks."""
     ctx = multiprocessing.get_context("spawn")
     port = _free_port()
-    procs = [ctx.Process(target=torch_launch_dist.rank_main,
-                         args=(r, world, port, *args))
+    procs = [ctx.Process(target=target, args=(r, world, port, *args))
              for r in range(world)]
     try:
         for pr in procs:
@@ -237,6 +239,8 @@ def test_dryrun_cell_subprocess(tmp_path):
     assert out["status"] == "ok"
     assert out["chips"] == 256
     assert out["collective_bytes"] > 0
+    # the vocab-split table is read where it lies: nothing is gathered
+    assert out["collective_by_kind"]["all-gather"] == 0
     assert out["memory_analysis"]["temp_size_in_bytes"] > 0
     for key in ("analytic_flops", "analytic_bytes", "model_flops_6nd",
                 "counted_flops", "counted_bytes", "collective_by_kind",
@@ -259,6 +263,36 @@ def test_dryrun_cell_subprocess(tmp_path):
                for tree, shs in trees
                for a, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shs)))
     assert out["memory_analysis"]["argument_size_in_bytes"] == want
+
+
+#: per-rank temp of train_4k on 256 ranks: 132.8 GB while the loss ran on
+#: all-gathered float32 logits, ~43.8 GB with the vocabulary kept split
+TRAIN_4K_TEMP_MAX = 48e9
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "train_4k"])
+def test_dryrun_keeps_the_vocabulary_split(shape, tmp_path):
+    """qwen2-0.5b's prefill_32k and train_4k on 256 fake CPU ranks, as the
+    reference's GSPMD program partitions them: the embedding table and
+    the logits stay split on "model", so prefill gathers nothing and
+    train_4k's per-rank temp fits under 48 GB."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--arch", "qwen2-0.5b", "--shape", shape,
+           "--device", "cpu", "--out", str(tmp_path)]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       cwd=ROOT, env={"PYTHONPATH": "src",
+                                      "PATH": "/usr/bin:/bin",
+                                      "HOME": str(tmp_path)})
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(
+        (tmp_path / f"qwen2-0.5b__{shape}__single.json").read_text())
+    assert out["status"] == "ok" and out["chips"] == 256
+    assert out["collective_by_kind"]["all-reduce"] > 0
+    if shape == "prefill_32k":
+        assert out["collective_by_kind"]["all-gather"] == 0
+    else:
+        assert 0 < out["memory_analysis"]["temp_size_in_bytes"] \
+            <= TRAIN_4K_TEMP_MAX
 
 
 # ---------------------------------------------------------------------------
@@ -468,6 +502,66 @@ def _leaves(shs):
     return out
 
 
+def _vocab_replicated(monkeypatch):
+    """The step as it ran before the vocabulary stayed split on the mesh:
+    the table all-gathered before ``F.embedding``, the log-softmax on
+    all-gathered float32 logits (DTensor's own strategies)."""
+    def embedding(tokens, table, ax):
+        return torch.nn.functional.embedding(
+            tokens, common.replicate(table)).to(torch.bfloat16)
+
+    def nll(logits, targets, ax):
+        lp = torch.log_softmax(logits, dim=-1)
+        hit = torch.arange(lp.shape[-1]) == targets[..., None]
+        return -torch.sum(torch.where(hit, lp, 0.0), dim=-1)
+    monkeypatch.setattr(model_mod, "_vocab_parallel_embedding", embedding)
+    monkeypatch.setattr(model_mod, "_vocab_parallel_nll", nll)
+
+
+def test_vocab_stays_split_as_in_the_reference_hlo(monkeypatch):
+    """The reference's train step of qwen2-0.5b's smoke config (vocab 256
+    split 2 ways) on the ``Auto`` (2, 2) mesh ``gloo_runs`` builds, 8 x 32
+    tokens: GSPMD partitions the lookup and the log-softmax over the
+    vocabulary, and the compiled HLO has no all-gather.  The port's fake
+    (2, 2) trace of the same step gathers exactly the table (V x D
+    bfloat16) and one rank's float32 logits (B/2 x (S - 1) x V) fewer
+    bytes than the same trace with both replicated."""
+    b, s = 8, 32
+    ref_cfg = ref_configs.get_config("qwen2-0.5b", smoke=True)
+    ref_model = RefLM(ref_cfg)
+    opt_cfg = ref_opt.OptConfig(**torch_launch_dist.OPT)
+    pipe = ref_data.Pipeline(ref_data.DataConfig(
+        vocab=ref_cfg.vocab, global_batch=b, seq_len=s))
+    params = ref_model.init(jax.random.PRNGKey(0))
+    opt = ref_opt.init(params, opt_cfg)
+    auto = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    with auto:
+        params = jax.device_put(params,
+                                ref_sharding.params_sharding(params, auto))
+        batch = pipe.batch(0)
+        batch = jax.device_put(batch, ref_sharding.batch_sharding(batch,
+                                                                  auto))
+        hlo = jax.jit(ref_train_step(ref_model, opt_cfg)).lower(
+            params, opt, batch).compile().as_text()
+    ref_kinds = ref_analysis.collective_bytes(hlo).bytes_by_kind
+    assert ref_kinds["all-gather"] == 0 and ref_kinds["all-reduce"] > 0
+
+    cfg = configs.get_config("qwen2-0.5b", smoke=True)
+
+    def gathered():
+        with dryrun.fake_group(4):
+            return dryrun.trace_step(
+                cfg, {"kind": "train", "seq": s, "batch": b}, _mesh((2, 2)),
+                device="cpu")["collective_by_kind"]["all-gather"]
+    split = gathered()
+    _vocab_replicated(monkeypatch)
+    whole = gathered()
+    table = cfg.vocab * cfg.d_model * 2
+    logits = b // 2 * (s - 1) * cfg.vocab * 4
+    assert whole - split == table + logits
+
+
 def test_dryrun_lower_cell_skips_and_reports():
     """``lower_cell`` skips what the reference skips, with its reason, and
     writes the reference's keys (``benchmarks/roofline_report.py`` reads
@@ -589,6 +683,67 @@ def test_gloo_elastic_remesh_restores_and_continues(gloo_runs):
     _, port_losses, remeshed = gloo_runs
     assert len(remeshed) == 4
     np.testing.assert_allclose(remeshed, port_losses[6:], rtol=0, atol=2e-2)
+
+
+@pytest.fixture(scope="module")
+def vocab_runs(tmp_path_factory):
+    """``torch_launch_dist.vocab_main`` on four gloo ranks as a (2, 2)
+    mesh: each rank's loss, logit gradient, lookup and table gradient
+    through the vocab-parallel functions."""
+    out = tmp_path_factory.mktemp("vocab") / "rank"
+    _spawn(4, (2, 2), out, target=torch_launch_dist.vocab_main)
+    return [json.loads(Path(f"{out}.{r}").read_text()) for r in range(4)]
+
+
+def test_vocab_parallel_loss_matches_log_softmax(vocab_runs):
+    """The vocab-parallel NLL's mean and its logit gradient against
+    ``torch.log_softmax`` on the whole float32 logits: only the order of
+    the float32 sums differs, so the loss agrees within rtol 1e-5 and
+    each logit's gradient within 1e-5 of the largest |g|, on every
+    rank."""
+    x = torch_launch_dist.vocab_inputs()
+    logits = torch.from_numpy(x["logits"]).requires_grad_()
+    lp = torch.log_softmax(logits, dim=-1)
+    loss = -torch.take_along_dim(
+        lp, torch.from_numpy(x["targets"])[..., None], -1).mean()
+    loss.backward()
+    g = logits.grad.numpy()
+    for r in vocab_runs:
+        np.testing.assert_allclose(r["loss"], loss.item(), rtol=1e-5, atol=0)
+        assert np.abs(np.array(r["logit_grad"]) - g).max() \
+            <= 1e-5 * np.abs(g).max(), r["rank"]
+
+
+def test_vocab_parallel_lookup_is_the_plain_lookup(vocab_runs):
+    """The vocab-parallel lookup equals ``F.embedding`` on the whole table
+    bit for bit (one rank holds each row, the others add zeros).  Its
+    table gradient stays on its ranks: each rank's shard equals
+    ``F.embedding``'s gradient from that rank's half of the batch, rows
+    for rows, left ``Partial`` on "data" and split on "model"; summed
+    over "data" it is the sum of the two halves' gradients."""
+    x = torch_launch_dist.vocab_inputs()
+    table = torch.from_numpy(x["table"]).to(torch.bfloat16)
+    tokens = torch.from_numpy(x["tokens"]).long()
+    grad = torch.from_numpy(x["grad"]).to(torch.bfloat16)
+    want = torch.nn.functional.embedding(tokens, table)
+    halves = []
+    for d in range(2):
+        t = table.clone().requires_grad_()
+        rows = slice(2 * d, 2 * d + 2)
+        torch.nn.functional.embedding(tokens[rows], t).backward(grad[rows])
+        halves.append(t.grad)
+    per_rank = table.shape[0] // 2
+
+    def bf16(v):
+        return torch.tensor(v).to(torch.bfloat16)
+    for r in vocab_runs:
+        d, m = r["coords"]
+        assert torch.equal(bf16(r["lookup"]), want)
+        assert r["lookup_placements"] == ["S(0)", "R"]
+        assert r["table_grad_placements"] == ["P(sum)", "S(0)"]
+        assert torch.equal(bf16(r["table_grad_local"]),
+                           halves[d][m * per_rank:(m + 1) * per_rank])
+        assert torch.equal(bf16(r["table_grad_full"]), halves[0] + halves[1])
 
 
 # ---------------------------------------------------------------------------
