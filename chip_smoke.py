@@ -1773,8 +1773,7 @@ def phase_serve(seed, dev=None, cfg=None, fabric_cfg=None,
           "cpu_check": cpu_check,
           "engine_stats": {k: st[k] for k in (
               "steps", "prefill_compiles", "stream_prefill_tokens",
-              "prefill_s", "prefill_tokens", "decode_s", "decode_tokens",
-              "decode_cold_s", "decode_warm_s", "decode_warm_steps")},
+              "prefill_tokens", "decode_tokens", "decode_warm_steps")},
           "prefill_ms_per_bucket": per_bucket,
           "decode_step_ms": {"median": step_ms,
                              "runs": [x * 1e3 for x in steps]},

@@ -34,6 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import trace
+
 from . import compiler, isa
 
 
@@ -509,32 +511,37 @@ def execute_blocks(program: isa.Program, states: CRState,
         return faults_mod.apply_block_faults(
             program, states, faults, executor=executor, packed=packed)
     if executor == "compiled":
-        blocks, rows, cols = states.array.shape
-        if packed is None:
-            packed = default_packed(program)
-        budget = canonical_block_budget(blocks)
-        use_cse = _use_cse(program, cse)
-        key = ("blocks", program.name, budget, rows, cols, bool(packed),
-               use_cse, program.fingerprint())
-        fn = _COMPILE_CACHE.get(key)
-        if fn is None:
-            inner = compiler.lower(program, rows, budget * cols, packed)
+        with trace.span("engine.execute_blocks"):
+            blocks, rows, cols = states.array.shape
+            if packed is None:
+                packed = default_packed(program)
+            budget = canonical_block_budget(blocks)
+            trace.count("engine.blocks_launched", budget)
+            use_cse = _use_cse(program, cse)
+            key = ("blocks", program.name, budget, rows, cols, bool(packed),
+                   use_cse, program.fingerprint())
+            fn = _COMPILE_CACHE.get(key)
+            if fn is None:
+                with trace.span("engine.compile"):
+                    inner = compiler.lower(program, rows, budget * cols,
+                                           packed)
 
-            def wide_fn(st: CRState, blocks=budget, cols=cols):
-                return _from_wide(inner(_to_wide(st)), blocks, cols)
+                    def wide_fn(st: CRState, blocks=budget, cols=cols):
+                        return _from_wide(inner(_to_wide(st)), blocks, cols)
 
-            if use_cse:                 # traced at the budget's shape
-                wide_fn = CSEProgram(wide_fn, (budget, rows, cols),
-                                     torch.bool)
-            fn = _COMPILE_CACHE.put(key, wide_fn)
-        if budget != blocks:
-            pad = budget - blocks
-            padded = CRState(*(
-                torch.cat([f, f.new_zeros((pad,) + tuple(f.shape[1:]))])
-                for f in states))
-            out = fn(padded)
-            return CRState(*(f[:blocks] for f in out))
-        return fn(states)
+                    if use_cse:                 # traced at the budget's shape
+                        wide_fn = CSEProgram(wide_fn, (budget, rows, cols),
+                                             torch.bool)
+                        wide_fn.trace(states.array.device)
+                    fn = _COMPILE_CACHE.put(key, wide_fn)
+            if budget != blocks:
+                pad = budget - blocks
+                padded = CRState(*(
+                    torch.cat([f, f.new_zeros((pad,) + tuple(f.shape[1:]))])
+                    for f in states))
+                out = fn(padded)
+                return CRState(*(f[:blocks] for f in out))
+            return fn(states)
     if executor not in ("unroll", "scan"):
         raise ValueError(
             f"unknown executor {executor!r}; expected one of {EXECUTORS}")

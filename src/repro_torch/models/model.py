@@ -27,6 +27,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from . import attention as attn
@@ -109,37 +110,44 @@ def _ffn(params, cfg, x):
 
 def _block_apply(params, h, cfg, btype, positions, mode, cache,
                  enc_out=None, enc_pos=None, causal=True):
-    """Returns (h, new_cache, aux)."""
+    """Returns (h, new_cache, aux).  An attention block records the
+    spans ``model.attention`` (its norm, attention, KV write and
+    residual) and ``model.mlp`` (norm, FFN and residual)."""
     new_cache = {}
     aux = 0.0
-    x = rmsnorm(h, params["ln1"], cfg.norm_eps)
 
     if btype in ("attn", "xattn"):
-        window = _window_for(cfg, btype)
-        if mode == "decode":
-            pos = positions[:, 0]
-            y, new_cache["kv"] = attn.attn_decode(
-                params["attn"], x, cache["kv"], cfg, pos, window=window)
-        else:
-            y = attn.attn_apply(params["attn"], x, cfg, positions,
-                                causal=causal, window=window)
-            if mode == "prefill":
-                cap = cache["kv"]["k"].shape[1]
-                new_cache["kv"] = attn.prefill_kv_cache(
-                    params["attn"], x, cfg, positions, cap, window=window)
-        h = h + y
-        if btype == "xattn":
-            xx = rmsnorm(h, params["lnx"], cfg.norm_eps)
-            y = attn.attn_apply(params["xattn"], xx, cfg, positions,
-                                causal=False, kv_src=enc_out,
-                                kv_positions=enc_pos)
+        with trace.span("model.attention"):
+            x = rmsnorm(h, params["ln1"], cfg.norm_eps)
+            window = _window_for(cfg, btype)
+            if mode == "decode":
+                pos = positions[:, 0]
+                y, new_cache["kv"] = attn.attn_decode(
+                    params["attn"], x, cache["kv"], cfg, pos, window=window)
+            else:
+                y = attn.attn_apply(params["attn"], x, cfg, positions,
+                                    causal=causal, window=window)
+                if mode == "prefill":
+                    cap = cache["kv"]["k"].shape[1]
+                    new_cache["kv"] = attn.prefill_kv_cache(
+                        params["attn"], x, cfg, positions, cap,
+                        window=window)
             h = h + y
-        f = rmsnorm(h, params["ln2"], cfg.norm_eps)
-        y, aux = _ffn(params, cfg, f)
-        if y is not None:
-            h = h + y
+            if btype == "xattn":
+                xx = rmsnorm(h, params["lnx"], cfg.norm_eps)
+                y = attn.attn_apply(params["xattn"], xx, cfg, positions,
+                                    causal=False, kv_src=enc_out,
+                                    kv_positions=enc_pos)
+                h = h + y
+        with trace.span("model.mlp"):
+            f = rmsnorm(h, params["ln2"], cfg.norm_eps)
+            y, aux = _ffn(params, cfg, f)
+            if y is not None:
+                h = h + y
+        return h, new_cache, aux
 
-    elif btype == "ssm":
+    x = rmsnorm(h, params["ln1"], cfg.norm_eps)
+    if btype == "ssm":
         y, c = ssm_mod.ssm_apply(
             params["ssm"], x, cfg,
             cache=cache["ssm"] if mode == "decode" else None)
@@ -423,7 +431,8 @@ class LM:
         cfg = self.cfg
         if positions is None:
             positions = _positions(tokens if tokens is not None else embeds)
-        h = self._embed(params, tokens, embeds)
+        with trace.span("model.embed"):
+            h = self._embed(params, tokens, embeds)
         unit_caches = caches["unit"] if caches is not None else None
         h, new_unit_caches, aux = self._run_unit(
             params["unit"], h, positions, mode, unit_caches,
@@ -435,7 +444,8 @@ class LM:
                                     positions, mode, c_i, enc_out, enc_pos)
             new_rest.append(nc)
             aux = aux + a
-        logits = self._head(params, h)
+        with trace.span("model.head"):
+            logits = self._head(params, h)
         new_caches = ({"unit": new_unit_caches, "rest": new_rest}
                       if mode != "train" else None)
         return logits, new_caches, aux

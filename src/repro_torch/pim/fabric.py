@@ -98,6 +98,7 @@ import numpy as np
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import costmodel, engine, floatprog, programs, ref
 from repro_torch.core import faults as faults_core
 from repro_torch.pim import cram
@@ -1452,17 +1453,18 @@ def execute_program(sched: FabricProgram, x_u: np.ndarray,
         return out
 
     def launch(c: str, arrs: np.ndarray) -> np.ndarray:
-        if fm is not None:
-            arrs = faulted(arrs)
         blocks = arrs.shape[0]
-        states = engine.CRState(
-            array=torch.from_numpy(arrs).to(dev),
-            carry=torch.zeros((blocks, cfg.cols), dtype=torch.bool,
-                              device=dev),
-            tag=torch.ones((blocks, cfg.cols), dtype=torch.bool, device=dev))
-        return engine.execute_blocks(
-            progs[c][0], states, executor=executor,
-            packed=packed).array.cpu().numpy()
+        with trace.span("fabric.h2d"):
+            states = engine.CRState(
+                array=torch.from_numpy(arrs).to(dev),
+                carry=torch.zeros((blocks, cfg.cols), dtype=torch.bool,
+                                  device=dev),
+                tag=torch.ones((blocks, cfg.cols), dtype=torch.bool,
+                               device=dev))
+        out = engine.execute_blocks(progs[c][0], states, executor=executor,
+                                    packed=packed)
+        with trace.span("fabric.d2h"):
+            return out.array.cpu().numpy()
 
     def consume(c: str, slots, res: np.ndarray) -> None:
         info = class_info[c]
@@ -1506,8 +1508,14 @@ def execute_program(sched: FabricProgram, x_u: np.ndarray,
                      for ri, rnd in enumerate(chunk) for t in rnd.tasks]
             # the last chunk stays zero-padded to the chunk shape so ONE
             # compiled wide fn serves every chunk of the group
-            consume(c, slots, launch(
-                c, pack_blocks(c, slots, chunk_r * n_compute)))
+            with trace.span("fabric.pack"):
+                arrs = pack_blocks(c, slots, chunk_r * n_compute)
+                if fm is not None:
+                    arrs = faulted(arrs)
+            res = launch(c, arrs)
+            with trace.span("fabric.consume"):
+                consume(c, slots, res)
+            trace.count("fabric.slots_used", len(slots))
     return outs
 
 
@@ -1594,6 +1602,7 @@ def fabric_matmul(x, w, nbits: int = 4,
                         out_bits=res.bits[0] if res.bits else None)
 
 
+@trace.spanned("fabric.fused_matmul")
 def fabric_fused_matmul(x, ws: Sequence, nbits: int = 4,
                         cfg: FabricConfig = FabricConfig(),
                         signed: bool = False, *,
@@ -1675,8 +1684,9 @@ def fabric_fused_matmul(x, ws: Sequence, nbits: int = 4,
                     f"{len(specs)} spec(s) for {len(ws)} GEMM(s)")
             rinfos = tuple(cram.resolve_dtype(s.dtype)
                            or _dtype_info(f"int{nbits}") for s in specs)
-        sched = schedule_program(specs, nbits, cfg=cfg, signed=signed,
-                                 session=session)
+        with trace.span("fabric.schedule"):
+            sched = schedule_program(specs, nbits, cfg=cfg, signed=signed,
+                                     session=session)
     else:
         sched = program
         shapes = tuple((g.M, g.K, g.N) for g in sched.gemms)
@@ -1694,81 +1704,89 @@ def fabric_fused_matmul(x, ws: Sequence, nbits: int = 4,
             # the program is the plan template; re-schedule its specs on
             # its cfg against the session's warm residency so a tuned
             # plan keeps its geometry AND gets the cross-call savings
-            sched = schedule_program(sched.gemms, sched.nbits,
-                                     cfg=sched.cfg, signed=sched.signed,
-                                     session=session)
+            with trace.span("fabric.schedule"):
+                sched = schedule_program(sched.gemms, sched.nbits,
+                                         cfg=sched.cfg, signed=sched.signed,
+                                         session=session)
     infos = sched.infos()
 
     # encode the shared activation once per dtype class, weights per GEMM
-    int_off: Dict[str, np.int64] = {}
-    x_encs: Dict[str, np.ndarray] = {}
-    for info in infos:
-        if info.name in x_encs:
-            continue
-        if info.is_float:
-            x_encs[info.name] = _encode_float_operand(x, info.fmt)
-        elif signed:
-            cram._check_range([x], info.bits, signed=True)
-            xu, off = cram._bias_signed(x, info.bits)
-            x_encs[info.name] = xu
-            int_off[info.name] = off
-        else:
-            cram._check_range([x], info.bits, signed=False)
-            x_encs[info.name] = np.asarray(x, np.uint64)
-    w_encs = []
-    for info, w in zip(infos, ws):
-        if info.is_float:
-            w_encs.append(_encode_float_operand(w, info.fmt))
-        elif signed:
-            cram._check_range([w], info.bits, signed=True)
-            w_encs.append(cram._bias_signed(w, info.bits)[0])
-        else:
-            cram._check_range([w], info.bits, signed=False)
-            w_encs.append(np.asarray(w, np.uint64))
+    with trace.span("fabric.encode"):
+        int_off: Dict[str, np.int64] = {}
+        x_encs: Dict[str, np.ndarray] = {}
+        for info in infos:
+            if info.name in x_encs:
+                continue
+            if info.is_float:
+                x_encs[info.name] = _encode_float_operand(x, info.fmt)
+            elif signed:
+                cram._check_range([x], info.bits, signed=True)
+                xu, off = cram._bias_signed(x, info.bits)
+                x_encs[info.name] = xu
+                int_off[info.name] = off
+            else:
+                cram._check_range([x], info.bits, signed=False)
+                x_encs[info.name] = np.asarray(x, np.uint64)
+        w_encs = []
+        for info, w in zip(infos, ws):
+            if info.is_float:
+                w_encs.append(_encode_float_operand(w, info.fmt))
+            elif signed:
+                cram._check_range([w], info.bits, signed=True)
+                w_encs.append(cram._bias_signed(w, info.bits)[0])
+            else:
+                cram._check_range([w], info.bits, signed=False)
+                w_encs.append(np.asarray(w, np.uint64))
 
     fm = faults if (faults is not None and faults.active) else None
     repaired = False
     if fm is not None and fm.dead_blocks and not fm.healed:
-        sched = repair_program(sched, fm.dead_blocks, fm=fm,
-                               session=session)
+        with trace.span("fabric.schedule"):
+            sched = repair_program(sched, fm.dead_blocks, fm=fm,
+                                   session=session)
         repaired = True
 
     primary = sched.classes[0]
     x_alt = {c: enc for c, enc in x_encs.items() if c != primary}
     scrub0, refetch0 = ((fm.scrub_rows, fm.refetch_bits) if fm is not None
                         else (0, 0))
-    raws = execute_program(sched, x_encs[primary], w_encs,
-                           batch_rounds=batch_rounds,
-                           x_alt=x_alt or None, faults=fm,
-                           dead_repaired=repaired, session=session,
-                           device=device)
+    with trace.span("fabric.execute"):
+        raws = execute_program(sched, x_encs[primary], w_encs,
+                               batch_rounds=batch_rounds,
+                               x_alt=x_alt or None, faults=fm,
+                               dead_repaired=repaired, session=session,
+                               device=device)
 
-    outs, bits = [], []
-    for info, raw, wu in zip(infos, raws, w_encs):
-        if info.is_float:
-            bits.append(raw.astype(np.uint32))
-            outs.append(ref.from_bits(raw, info.fmt.ebits, info.fmt.mbits))
-        elif signed:
-            off = int_off[info.name]
-            a_sums = x_encs[info.name].sum(axis=1, dtype=np.int64)[:, None]
-            outs.append(cram._unbias(
-                raw, off, a_sums, wu.sum(axis=0, dtype=np.int64)[None, :],
-                x.shape[1]))
-            bits.append(None)
-        else:
-            outs.append(raw)
-            bits.append(None)
-    cost = schedule_cost(sched)
-    if fm is not None:
-        fcost = costmodel.fault_cost(
-            "fabric/fault_overhead", n_blocks=sched.cfg.n_blocks,
-            cols=sched.cfg.cols, parity_bits=fm.parity_bits,
-            scrub_rows=fm.scrub_rows - scrub0,
-            refetch_bits=fm.refetch_bits - refetch0,
-            edge_hops=sched.cfg.grid_diameter)
-        cost = combine_costs(cost.name + "+faults", [cost, fcost])
-    if session is not None:
-        session.record_cost(cost)
+    with trace.span("fabric.unbias"):
+        outs, bits = [], []
+        for info, raw, wu in zip(infos, raws, w_encs):
+            if info.is_float:
+                bits.append(raw.astype(np.uint32))
+                outs.append(ref.from_bits(raw, info.fmt.ebits,
+                                          info.fmt.mbits))
+            elif signed:
+                off = int_off[info.name]
+                a_sums = x_encs[info.name].sum(axis=1,
+                                               dtype=np.int64)[:, None]
+                outs.append(cram._unbias(
+                    raw, off, a_sums,
+                    wu.sum(axis=0, dtype=np.int64)[None, :], x.shape[1]))
+                bits.append(None)
+            else:
+                outs.append(raw)
+                bits.append(None)
+    with trace.span("fabric.cost"):
+        cost = schedule_cost(sched)
+        if fm is not None:
+            fcost = costmodel.fault_cost(
+                "fabric/fault_overhead", n_blocks=sched.cfg.n_blocks,
+                cols=sched.cfg.cols, parity_bits=fm.parity_bits,
+                scrub_rows=fm.scrub_rows - scrub0,
+                refetch_bits=fm.refetch_bits - refetch0,
+                edge_hops=sched.cfg.grid_diameter)
+            cost = combine_costs(cost.name + "+faults", [cost, fcost])
+        if session is not None:
+            session.record_cost(cost)
     return FusedResult(outs=tuple(outs), schedule=sched,
                        cost=cost, bits=tuple(bits))
 

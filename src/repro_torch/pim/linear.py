@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -140,36 +141,43 @@ def fused_linear_apply(params_list, x: torch.Tensor, cfg: PimConfig):
 
     from repro_torch.pim import fabric as fabric_mod
 
-    orig_shape = x.shape
-    xf = x.reshape(-1, orig_shape[-1])
-    qx, sx = kops.quantize(xf.to(torch.float32), bits=cfg.act_bits, axis=0)
-    qws = [kref.unpack_bitplanes(p["w_packed"], axis=0, signed=True)
-           for p in params_list]
-    fcfg = cfg.fabric if cfg.fabric is not None \
-        else fabric_mod.FabricConfig()
-    nbits = max(cfg.act_bits, cfg.weight_bits)
-    prog = None
-    if cfg.fabric_autotune:
-        specs = tuple(fabric_mod.GemmSpec(f"proj{g}", qx.shape[0],
-                                          qx.shape[1], qw.shape[1])
-                      for g, qw in enumerate(qws))
-        prog = fabric_mod.search_program(
-            specs, nbits, base=fcfg, signed=True,
-            geometries=((fcfg.rows, fcfg.cols),)).schedule
-    res = fabric_mod.fabric_fused_matmul(
-        qx.cpu().numpy().astype(np.int64),
-        [qw.cpu().numpy().astype(np.int64) for qw in qws],
-        nbits=nbits, cfg=fcfg, signed=True, program=prog,
-        names=tuple(f"proj{g}" for g in range(len(qws))),
-        session=cfg.fabric_session, device=x.device)
-    outs = []
-    for raw, p in zip(res.outs, params_list):
-        acc = torch.from_numpy(raw.astype(np.float32)).to(x.device) \
-            * p["w_scale"][None, :]
-        y = acc * sx[:, None]
-        outs.append(
-            y.reshape(orig_shape[:-1] + (y.shape[-1],)).to(x.dtype))
-    return tuple(outs)
+    with trace.span("pim.fused_linear"):
+        orig_shape = x.shape
+        with trace.span("pim.quantize"):
+            xf = x.reshape(-1, orig_shape[-1])
+            qx, sx = kops.quantize(xf.to(torch.float32), bits=cfg.act_bits,
+                                   axis=0)
+            qx_host = qx.cpu().numpy().astype(np.int64)
+        with trace.span("pim.unpack_weights"):
+            qws = [kref.unpack_bitplanes(p["w_packed"], axis=0, signed=True)
+                   for p in params_list]
+            qws_host = [qw.cpu().numpy().astype(np.int64) for qw in qws]
+        fcfg = cfg.fabric if cfg.fabric is not None \
+            else fabric_mod.FabricConfig()
+        nbits = max(cfg.act_bits, cfg.weight_bits)
+        prog = None
+        if cfg.fabric_autotune:
+            specs = tuple(fabric_mod.GemmSpec(f"proj{g}", qx.shape[0],
+                                              qx.shape[1], qw.shape[1])
+                          for g, qw in enumerate(qws))
+            with trace.span("fabric.schedule"):
+                prog = fabric_mod.search_program(
+                    specs, nbits, base=fcfg, signed=True,
+                    geometries=((fcfg.rows, fcfg.cols),)).schedule
+        res = fabric_mod.fabric_fused_matmul(
+            qx_host, qws_host, nbits=nbits, cfg=fcfg, signed=True,
+            program=prog,
+            names=tuple(f"proj{g}" for g in range(len(qws))),
+            session=cfg.fabric_session, device=x.device)
+        outs = []
+        with trace.span("pim.dequant"):
+            for raw, p in zip(res.outs, params_list):
+                acc = torch.from_numpy(raw.astype(np.float32)).to(x.device) \
+                    * p["w_scale"][None, :]
+                y = acc * sx[:, None]
+                outs.append(
+                    y.reshape(orig_shape[:-1] + (y.shape[-1],)).to(x.dtype))
+        return tuple(outs)
 
 
 def _tensor_from_numpy(a: np.ndarray) -> torch.Tensor:

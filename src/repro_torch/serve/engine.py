@@ -69,6 +69,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.faults import FabricFaultError
 
@@ -222,14 +223,11 @@ class ServeEngine:
                       "admitted": 0, "rejected": 0, "truncated": 0,
                       "preemptions": 0, "resumes": 0,
                       "stream_prefill_tokens": 0,
-                      # phase timing split (serve_bench artifact): total
-                      # prefill wall-clock + prompt tokens pushed through
-                      # it, and decode wall-clock split cold (first decode
-                      # step: compiles + fabric-session warm-up) vs warm
-                      # (steady state)
-                      "prefill_s": 0.0, "prefill_tokens": 0,
-                      "decode_s": 0.0, "decode_tokens": 0,
-                      "decode_cold_s": 0.0, "decode_warm_s": 0.0,
+                      # work by phase: prompt tokens prefilled, tokens
+                      # decoded, and decode steps after the first (the
+                      # phases' times are the spans serve.prefill and
+                      # serve.decode: repro_torch.trace)
+                      "prefill_tokens": 0, "decode_tokens": 0,
                       "decode_warm_steps": 0}
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -282,21 +280,22 @@ class ServeEngine:
 
     def _admit(self) -> int:
         """Fill free slots from the queue; returns admissions made."""
-        admitted = 0
-        for i in range(self.B):
-            if self.slots[i] is not None:
-                continue
-            req = self._next_admissible()
-            if req is None:
-                break
-            self._prefill_into(i, req)
-            admitted += 1
-        return admitted
+        with trace.span("serve.admit"):
+            admitted = 0
+            for i in range(self.B):
+                if self.slots[i] is not None:
+                    continue
+                req = self._next_admissible()
+                if req is None:
+                    break
+                with trace.span("serve.prefill", rid=req.rid):
+                    self._prefill_into(i, req)
+                admitted += 1
+            return admitted
 
     def _prefill_into(self, i: int, req: Request):
         """Admit ``req`` into slot ``i``: bounded prefill call, paged KV
         allocation, and (for long prompts) arming the streamed tail."""
-        tp0 = time.perf_counter()
         resume = bool(req.out)
         # a resumed request re-prefills prompt + generated tokens: the
         # recompute preemption policy (greedy chains continue bit-
@@ -321,6 +320,7 @@ class ServeEngine:
         if bucket not in self._prefill_buckets:
             self._prefill_buckets.add(bucket)
             self.stats["prefill_compiles"] += 1
+        trace.count("serve.prefill_padded_tokens", bucket - chunk)
         logits, cache = self._prefill_one(
             self.params, self._tensor(padded)[None, :])
 
@@ -339,7 +339,8 @@ class ServeEngine:
                 lead = (slice(None),) * bdim
                 full[lead + (i,)] = one[lead + (0,)]
 
-        merge(self.caches, cache, 0)
+        with trace.span("serve.merge"):
+            merge(self.caches, cache, 0)
 
         now = time.perf_counter()
         if req.t_admit is None:
@@ -366,7 +367,6 @@ class ServeEngine:
             if req.t_first is None:
                 req.t_first = now
             self.tokens[i, 0] = nxt
-        self.stats["prefill_s"] += time.perf_counter() - tp0
         self.stats["prefill_tokens"] += chunk
 
     # -- retirement / preemption --------------------------------------------
@@ -382,10 +382,11 @@ class ServeEngine:
         """Finish slots whose budget the prefill token already covered
         (max_new=1 admits) -- decoding them would overshoot."""
         finished = []
-        for i, req in enumerate(self.slots):
-            if req is not None and len(req.out) >= req.max_new:
-                self._finish(i, req)
-                finished.append(req)
+        with trace.span("serve.retire"):
+            for i, req in enumerate(self.slots):
+                if req is not None and len(req.out) >= req.max_new:
+                    self._finish(i, req)
+                    finished.append(req)
         return finished
 
     def _preempt(self, i: int, req: Request):
@@ -403,21 +404,22 @@ class ServeEngine:
     def _append_kv(self, active: List[int]):
         """Charge one KV token per active lane for this decode step,
         preempting victims while the pool is dry."""
-        for i in active:
-            req = self.slots[i]
-            if req is None:          # already preempted as a victim
-                continue
-            while not self.kv.append(req.rid):
-                others = [r for r in self.slots
-                          if r is not None and r is not req]
-                victim = self.sched.pick_victim(others)
-                if victim is None:
-                    raise RuntimeError(
-                        "KV pool dry with a single active request -- "
-                        "admission should have rejected it")
-                vslot = next(j for j, r in enumerate(self.slots)
-                             if r is victim)
-                self._preempt(vslot, victim)
+        with trace.span("serve.kv_append"):
+            for i in active:
+                req = self.slots[i]
+                if req is None:          # already preempted as a victim
+                    continue
+                while not self.kv.append(req.rid):
+                    others = [r for r in self.slots
+                              if r is not None and r is not req]
+                    victim = self.sched.pick_victim(others)
+                    if victim is None:
+                        raise RuntimeError(
+                            "KV pool dry with a single active request -- "
+                            "admission should have rejected it")
+                    vslot = next(j for j, r in enumerate(self.slots)
+                                 if r is victim)
+                    self._preempt(vslot, victim)
 
     # -- probe --------------------------------------------------------------
     def _observe_guarded(self, x):
@@ -444,6 +446,7 @@ class ServeEngine:
         return self.fabric_probe.observe_ref(x)
 
     # -- the step -----------------------------------------------------------
+    @trace.spanned("serve.step")
     def step(self) -> List[Request]:
         """One scheduling step: retire, admit, decode every active lane,
         retire again, and backfill freed slots -- so with work queued
@@ -458,7 +461,6 @@ class ServeEngine:
         active = [i for i, r in enumerate(self.slots) if r is not None]
         decode_ran = False
         if active:
-            td0 = time.perf_counter()
             # paged-KV accounting for the token each lane writes this
             # step; a dry pool preempts the least-committed lane(s)
             self._append_kv(active)
@@ -471,22 +473,27 @@ class ServeEngine:
                 # of the ACTIVE lanes only (a finished slot's stale
                 # token never reaches the grid; the fused program's M
                 # tracks the live batch)
-                x = self.model._embed(
-                    self.params, self._tensor(self.tokens[active]))
-                self._observe_guarded(
-                    x.to(torch.float32).cpu().numpy()[:, 0, :])
-            logits, self.caches = self._decode(
-                self.params, self.caches, self._tensor(self.tokens),
-                self._tensor(self.pos))
-            if self.temperature > 0:
-                gen = torch.Generator(device=logits.device).manual_seed(
-                    _sample_seed(self.seed, self._step_count))
-                probs = torch.softmax(
-                    logits[:, 0].to(torch.float32) / self.temperature, -1)
-                nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
-            else:
-                nxt = torch.argmax(logits[:, 0], dim=-1)
-            nxt = nxt.cpu().numpy().astype(np.int32)
+                with trace.span("serve.probe"):
+                    x = self.model._embed(
+                        self.params, self._tensor(self.tokens[active]))
+                    self._observe_guarded(
+                        x.to(torch.float32).cpu().numpy()[:, 0, :])
+            with trace.span("serve.decode"):
+                logits, self.caches = self._decode(
+                    self.params, self.caches, self._tensor(self.tokens),
+                    self._tensor(self.pos))
+                with trace.span("serve.sample"):
+                    if self.temperature > 0:
+                        gen = torch.Generator(
+                            device=logits.device).manual_seed(
+                            _sample_seed(self.seed, self._step_count))
+                        probs = torch.softmax(logits[:, 0].to(
+                            torch.float32) / self.temperature, -1)
+                        nxt = torch.multinomial(probs, 1,
+                                                generator=gen)[:, 0]
+                    else:
+                        nxt = torch.argmax(logits[:, 0], dim=-1)
+                    nxt = nxt.cpu().numpy().astype(np.int32)
 
             now = time.perf_counter()
             produced = 0
@@ -511,16 +518,11 @@ class ServeEngine:
                 if len(req.out) >= req.max_new:
                     self._finish(i, req)
                     finished.append(req)
-            # decode phase split: the FIRST decode launch pays the
-            # one-time costs (the kernels' first launches, fabric-session
-            # weight warm-up); later launches are the steady state
-            dt = time.perf_counter() - td0
-            self.stats["decode_s"] += dt
+            # the FIRST decode launch pays the one-time costs (the
+            # kernels' first launches, fabric-session weight warm-up);
+            # later launches are the steady state
             self.stats["decode_tokens"] += produced
-            if self._decode_count == 0:
-                self.stats["decode_cold_s"] += dt
-            else:
-                self.stats["decode_warm_s"] += dt
+            if self._decode_count:
                 self.stats["decode_warm_steps"] += 1
             self._decode_count += 1
             decode_ran = True
