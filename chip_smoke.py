@@ -61,6 +61,9 @@ through their public entry points:
 * the fabric: the same seven linears of layer 0 on 8 decode tokens
   through ``fused_linear_apply`` with ``PimConfig(mode="fabric")`` at
   W4A4 (every round launch of 512 blocks folds through ``lane_fold``);
+  the ``fabric_pack`` kernel that packs those launches' block images on
+  the card, against its plain version and the host's numpy pack at the
+  launch shape (512 x 512 x 40) and timed there;
   ``fabric_matmul`` at int4, int8 and bf16, a ``FabricSession`` decode
   loop and a ``FabricAttentionBlock`` head with KV appends; the fault
   hooks (parity scrub, spare-block repair); the fuzz corpus and a fuzz
@@ -106,6 +109,7 @@ from repro_torch.core import (engine, faults, floatprog,  # noqa: E402
 from repro_torch.kernels import bitplane_ops as bp  # noqa: E402
 from repro_torch.kernels import bitserial_matmul as bsm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import fabric_pack as fpk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import attention as mattn  # noqa: E402
@@ -1125,9 +1129,10 @@ def phase_fabric_layer(seed, dev=None, cfg=None, fabric_cfg=None):
     run(*FABRIC_GROUPS[1])     # warm-up: lowers the 512-block round fn
     bp.lane_fold_cuda.launches = 0
     groups, outs = {}, {}
+    packs = fpk.fabric_pack_cuda
     with FabricCalls() as rec:
         for i, (g, names) in enumerate(FABRIC_GROUPS):
-            f0 = bp.lane_fold_cuda.launches
+            f0, p0 = bp.lane_fold_cuda.launches, packs.launches
 
             def schedule(_):
                 if len(rec.calls) != i + 1:
@@ -1145,8 +1150,15 @@ def phase_fabric_layer(seed, dev=None, cfg=None, fabric_cfg=None):
                 "rounds": len(sched.rounds),
                 "execute_blocks_launches": calls,
                 "lane_fold_launches": bp.lane_fold_cuda.launches - f0,
+                "fabric_pack_launches": packs.launches - p0,
                 "program": sched.class_program(sched.classes[0])[0].name,
                 "n_compute": sched.n_compute}
+            # on the card, every launch of the int program packs there
+            if dev.type == "cuda" and groups[g]["fabric_pack_launches"] \
+                    != calls:
+                raise AssertionError(f"{g}: {calls} launches, "
+                                     f"{groups[g]['fabric_pack_launches']} "
+                                     f"fabric_pack launches")
             # the raw accumulators against numpy on the quantized operands
             for n, w, raw in zip(names, wqs, res.outs):
                 want = xq.astype(np.int64) @ w.astype(np.int64)
@@ -1175,9 +1187,110 @@ def phase_fabric_layer(seed, dev=None, cfg=None, fabric_cfg=None):
                                           groups.values()),
           "execute_blocks_launches": sum(
               v["execute_blocks_launches"] for v in groups.values()),
-          "lane_fold_launches": launches, "bit_identical_to_ref": True,
+          "lane_fold_launches": launches,
+          "fabric_pack_launches": sum(v["fabric_pack_launches"]
+                                      for v in groups.values()),
+          "bit_identical_to_ref": True,
           "accumulators_exact": True, "profiled_group_o": where})
     return launches, groups
+
+
+#: the fabric cell's gate+up launch: qwen2-0.5b's gate and up (896 ->
+#: 4864 each) fused at W4A4 on 8 decode rows, on the default grid
+FABRIC_PACK_GEMMS = (("gate", 4864), ("up", 4864))
+FABRIC_PACK_MK = (DECODE_SEQS, 896)
+
+
+def pack_random_case(rng, rows, cols, bits, dev, tuples=4, M=3, K=17,
+                     N=53):
+    """``fabric_pack_cuda`` against ``fabric_pack_torch`` on random
+    operands of ``bits`` bits, a random row map of ``tuples`` tuples and
+    five random tasks in six slots (the last one padding)."""
+    dt = np.uint8 if bits <= 8 else np.uint32
+
+    def up(a):
+        a = a.astype(dt)
+        return torch.from_numpy(a.view(np.int32) if dt == np.uint32
+                                else a).to(dev)
+
+    x = up(rng.integers(0, 1 << bits, (M, K), dtype=np.uint64))
+    w = up(rng.integers(0, 1 << bits, (K, N), dtype=np.uint64))
+    rowmap = np.full(rows, -1, np.int32)
+    for n, r in enumerate(rng.permutation(rows)[:2 * tuples]):
+        rowmap[r] = fpk.row_code(n // 2, "ab"[n % 2], int(rng.integers(bits)))
+    desc = np.zeros((6, fpk.DESC_FIELDS), np.int32)
+    for i in range(5):
+        kw = int(rng.integers(1, tuples + 1))
+        nw = int(rng.integers(1, cols + 1))
+        desc[i] = (rng.integers(M), rng.integers(K - kw + 1), kw,
+                   rng.integers(N - nw + 1), nw, 1)
+    desc, rowmap = (torch.from_numpy(a).to(dev) for a in (desc, rowmap))
+    if not torch.equal(fpk.fabric_pack_cuda(x, w, desc, rowmap, cols),
+                       fpk.fabric_pack_torch(x, w, desc, rowmap, cols)):
+        raise AssertionError(f"fabric_pack != plain at rows {rows}, cols "
+                             f"{cols}, {bits}-bit operands")
+
+
+def phase_fabric_pack(rng, dev="cuda"):
+    """The ``fabric_pack`` kernel on the card at the fabric's launch shape
+    (the first 512-block launch of a W4A4 gate+up program on the default
+    grid, 512 x 512 x 40): equal to its plain torch version on the same
+    tensors and to the host's numpy ``pack_blocks``; its graph time
+    beside the bound of the image's bytes written once at the memory
+    rate, the plain version's time and the host pack's wall.  Then the
+    kernel against the plain version on 32-bit words and on slot images
+    of a size not a multiple of 4 bytes."""
+    M, K = FABRIC_PACK_MK
+    cfg = fabric.FabricConfig()
+    specs = tuple(fabric.GemmSpec(n, M, K, N) for n, N in FABRIC_PACK_GEMMS)
+    sched = fabric.schedule_program(specs, 4, cfg=cfg, signed=True)
+    _, lay = sched.class_program("int4")
+    x_enc = rng.integers(0, 16, (M, K), dtype=np.uint64)
+    w_us = [rng.integers(0, 16, (K, N), dtype=np.uint64)
+            for _, N in FABRIC_PACK_GEMMS]
+    ops = fabric.device_operands(lay, 4, x_enc, dict(enumerate(w_us)), dev)
+    compute = sched.compute_blocks
+    slot_of = {b: i for i, b in enumerate(compute)}
+    per = fabric.MAX_BATCH_BLOCKS // len(compute)
+    slots = [(t, ri * len(compute) + slot_of[t.block])
+             for ri, rnd in enumerate(sched.rounds[:per]) for t in rnd.tasks]
+    n_slots = per * len(compute)
+    desc = torch.from_numpy(fabric.pack_descriptor(
+        slots, n_slots, ops.col_off, ops.kt, cfg.cols)).to(dev)
+    before = fpk.fabric_pack_cuda.launches
+    got = fabric.pack_blocks_device(ops, desc, cfg.cols)
+    if fpk.fabric_pack_cuda.launches != before + 1:
+        raise AssertionError("pack_blocks_device did not launch the kernel")
+    plain = fpk.fabric_pack_torch(ops.x, ops.w, desc, ops.rowmap, cfg.cols)
+    t0 = time.perf_counter()
+    host = fabric.pack_blocks(lay, cfg.cols, slots, n_slots, x_enc, w_us)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    shape = (n_slots, cfg.rows, cfg.cols)
+    if tuple(got.shape) != shape or not torch.equal(got, plain) \
+            or not np.array_equal(got.cpu().numpy(), host):
+        raise AssertionError(f"fabric_pack != its plain version or the "
+                             f"host pack at {shape}")
+    kern = timings(lambda: fpk.fabric_pack_cuda(
+        ops.x, ops.w, desc, ops.rowmap, cfg.cols))
+    # the plain version selects rows with ``nonzero``, which a CUDA graph
+    # cannot capture: event time, the host's launches included
+    plain_ms = time_ms(lambda: fpk.fabric_pack_torch(
+        ops.x, ops.w, desc, ops.rowmap, cfg.cols), reps=10, warmup=2)
+    nbytes = n_slots * cfg.rows * cfg.cols
+    bms, bby = bound_ms(nbytes, 0, INT32_OPS_PER_S)
+    # 32-bit words (int16 and int32 operands), and slot images of 9 x 7
+    # bytes (byte stores)
+    others = [[512, 40, 16], [9, 7, 8], [128, 8, 32]]
+    for rows, cols, bits in others:
+        pack_random_case(rng, rows, cols, bits, dev)
+    stats = {"shape": list(shape), "operand_bits": 4,
+             "tasks": len(slots), "max_abs_err": 0, "ms": kern["ms"],
+             "event_ms": kern["event_ms"], "plain_event_ms": plain_ms,
+             "host_pack_ms": host_ms,
+             "bound_ms": bms, "bound_by": bby, "bytes": nbytes,
+             "roofline_pct": 100 * bms / kern["ms"], "also_checked": others}
+    emit({"phase": "fabric_pack_vs_plain", "ok": True, **stats})
+    return stats
 
 
 def device_profile(run):
@@ -2624,7 +2737,9 @@ def main():
     flash = cse_checked(phase_flash, rng)
     cse_checked(phase_flash_model, rng)
     linear_launches, _ = cse_checked(phase_pim_linear, args.seed)
-    fabric_launches, _ = cse_checked(phase_fabric_layer, args.seed)
+    fabric_launches, fabric_groups = cse_checked(phase_fabric_layer,
+                                                 args.seed)
+    pack = cse_checked(phase_fabric_pack, rng)
     serve_launches = cse_checked(phase_serve,
                                  args.seed)["lane_fold_launches"]
     cse_checked(phase_train, args.seed)
@@ -2654,6 +2769,18 @@ def main():
         "at_fabric_shape": {k: stats["fabric_shape"][k] for k in (
             "shape", "max_abs_err", "ms", "op_ms", "plain_ms", "bound_ms",
             "bound_by")}}]
+    kernels.append({
+        "name": "fabric_pack", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fabric_pack.cu",
+        "replaces": None,
+        "launches": sum(g["fabric_pack_launches"]
+                        for g in fabric_groups.values()),
+        "launches_by_path": {"fabric_qwen2_layer0": sum(
+            g["fabric_pack_launches"] for g in fabric_groups.values())},
+        **{k: pack[k] for k in ("shape", "max_abs_err", "ms",
+                                "plain_event_ms", "host_pack_ms", "bound_ms",
+                                "bound_by")},
+        "library_ms": None})
     for name, line, st in (
             ("quant_matmul", "bitserial_matmul.py:106", gemm["quant_matmul"]),
             ("popcount_matmul", "bitserial_matmul.py:167",

@@ -83,9 +83,13 @@ repair, costing and search are numpy and the reference's own code.  Only
 the execute side differs: each round launch builds its block states on
 the ``device`` the caller names (``None``: the GPU) and runs the port's
 ``engine.execute_blocks`` there, so every packed int round folds through
-the ``lane_fold`` kernel on the card.  Operand images are packed and
-consumed on the host as uint64 arrays, as the reference does (torch has
-no uint64 arithmetic).
+the ``lane_fold`` kernel on the card.  An integer class's operands go to
+the device once a call and each launch's block images are packed there
+(:func:`pack_blocks_device`, the ``fabric_pack`` kernel), so only the
+accumulator rows come back; float classes, whose K-stages chain a host
+accumulator image, and launches under a fault model, whose seeded flips
+hit the host image, pack on the host as the reference does
+(:func:`pack_blocks`, uint64 numpy: torch has no uint64 arithmetic).
 """
 
 from __future__ import annotations
@@ -101,6 +105,7 @@ import torch
 from repro_torch import trace
 from repro_torch.core import costmodel, engine, floatprog, programs, ref
 from repro_torch.core import faults as faults_core
+from repro_torch.kernels import fabric_pack as fpk
 from repro_torch.pim import cram
 
 FabricFaultError = faults_core.FabricFaultError
@@ -1263,6 +1268,129 @@ def repair_program(sched: FabricProgram, dead,
 # compiled wide fn serves every chunk of a schedule).
 MAX_BATCH_BLOCKS = 512
 
+#: widest integer class whose images are packed on the device: the
+#: ``fabric_pack`` kernel reads operands as bytes or 32-bit words
+DEVICE_PACK_MAX_BITS = 32
+
+
+def pack_blocks(lay, cols: int, tasks_slots, n_slots: int,
+                x_enc: np.ndarray, w_us: Sequence[np.ndarray],
+                fmt=None, accs=None) -> np.ndarray:
+    """Host pack: the ``(n_slots, lay.rows, cols)`` bool block images of
+    one launch, every ``(task, block-slot)`` pair of ``tasks_slots``.
+
+    ``x_enc`` is the class's ``(M, K)`` activation encoding and
+    ``w_us[g]`` GEMM *g*'s ``(K, N_g)`` weights (uint64).  Bit-plane
+    transposition runs once per bit over every block at once (numpy
+    broadcasting) instead of once per task -- identical images to
+    ``harness.pack_state`` per block, but the host-side cost no longer
+    scales with task count.  For a float class (``fmt``), a task past
+    its first K-stage starts from the wide accumulator image its last
+    stage left in ``accs[(gemm, m, n0)]``.
+    """
+    kt = lay.tuples
+    a_vals = np.zeros((n_slots, kt, cols), np.uint64)
+    b_vals = np.zeros((n_slots, kt, cols), np.uint64)
+    for t, slot in tasks_slots:
+        kw, nw = t.k1 - t.k0, t.n1 - t.n0
+        a_vals[slot, :kw, :] = x_enc[t.m, t.k0:t.k1][:, None]     # -> cols
+        b_vals[slot, :kw, :nw] = w_us[t.gemm][t.k0:t.k1, t.n0:t.n1]
+    arrs = np.zeros((n_slots, lay.rows, cols), bool)
+    bases = np.array([lay.base(i) for i in range(kt)])
+    for name, vals in (("a", a_vals), ("b", b_vals)):
+        off, width = lay.fields[name]
+        for i in range(width):
+            arrs[:, bases + off + i, :] = \
+                ((vals >> np.uint64(i)) & np.uint64(1)).astype(bool)
+    if fmt is not None:
+        for t, slot in tasks_slots:
+            if t.k0 == 0:
+                continue          # fresh accumulator (+0 image)
+            floatprog.fdot_set_acc(arrs[slot], fmt, accs[(t.gemm, t.m, t.n0)])
+    return arrs
+
+
+def pack_rowmap(lay) -> np.ndarray:
+    """``(lay.rows,)`` int32: the ``fabric_pack`` row map of an ``idot``
+    layout -- each operand row's tuple, field and bit
+    (:func:`repro_torch.kernels.fabric_pack.row_code`), -1 elsewhere."""
+    rowmap = np.full(lay.rows, -1, np.int32)
+    for i in range(lay.tuples):
+        for name in ("a", "b"):
+            off, width = lay.fields[name]
+            for j in range(width):
+                rowmap[lay.base(i) + off + j] = fpk.row_code(i, name, j)
+    return rowmap
+
+
+def pack_descriptor(tasks_slots, n_slots: int, col_off: Dict[int, int],
+                    kt: int, cols: int) -> np.ndarray:
+    """``(n_slots, 6)`` int32: one launch's slot descriptors for
+    ``fabric_pack`` -- ``m, k0, kw, col0, nw, used`` per slot, with
+    ``col0`` the task's first column among the class's weights side by
+    side (GEMM *g* starts at ``col_off[g]``); slots without a task stay
+    zero (unused)."""
+    desc = np.zeros((n_slots, fpk.DESC_FIELDS), np.int32)
+    if not tasks_slots:
+        return desc
+    rows = np.array([(slot, t.m, t.k0, t.k1 - t.k0, col_off[t.gemm] + t.n0,
+                      t.n1 - t.n0, 1) for t, slot in tasks_slots], np.int64)
+    if rows[:, 3].max() > kt or rows[:, 5].max() > cols \
+            or rows[:, 0].max() >= n_slots:
+        raise ValueError(f"a task exceeds the launch's {n_slots} slots, its "
+                         f"{kt} tuples or its {cols} columns")
+    desc[rows[:, 0]] = rows[:, 1:]
+    return desc
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceOperands:
+    """One integer dtype class's operands on the device, for
+    :func:`pack_blocks_device`: the ``(M, K)`` activation ``x`` and the
+    class's GEMMs' weights side by side in ``w`` ``(K, sum N_g)`` (GEMM
+    *g* from column ``col_off[g]``), uint8 up to 8 bits and 32-bit words
+    (int32) above; the layout's ``rowmap``; its ``kt`` tuples."""
+    x: torch.Tensor
+    w: torch.Tensor
+    col_off: Dict[int, int]
+    rowmap: torch.Tensor
+    kt: int
+
+
+def device_operands(lay, bits: int, x_enc: np.ndarray,
+                    w_us: Dict[int, np.ndarray], dev) -> DeviceOperands:
+    """Upload one integer class's operands (``w_us``: GEMM -> its
+    ``(K, N_g)`` weights, in GEMM order) and its layout's row map."""
+    if bits > DEVICE_PACK_MAX_BITS:
+        raise ValueError(f"int{bits} operands are wider than the device "
+                         f"pack's {DEVICE_PACK_MAX_BITS} bits")
+
+    dt = np.uint8 if bits <= 8 else np.uint32
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a if dt == np.uint8
+                                else a.view(np.int32)).to(dev)
+
+    col_off, n = {}, 0
+    for g, w in w_us.items():
+        col_off[g], n = n, n + w.shape[1]
+    return DeviceOperands(
+        x=up(np.ascontiguousarray(x_enc, dt)),
+        w=up(np.concatenate([w.astype(dt, order="C")
+                             for w in w_us.values()], axis=1)),
+        col_off=col_off, rowmap=torch.from_numpy(pack_rowmap(lay)).to(dev),
+        kt=lay.tuples)
+
+
+def pack_blocks_device(ops: DeviceOperands, desc: torch.Tensor,
+                       cols: int) -> torch.Tensor:
+    """Device pack: the ``(slots, rows, cols)`` bool block images of one
+    launch from its uploaded descriptor (:func:`pack_descriptor`),
+    written where the engine reads them -- bit for bit
+    :func:`pack_blocks`'s integer images.  The ``fabric_pack`` kernel on
+    CUDA, its plain torch version on the CPU."""
+    return fpk.fabric_pack(ops.x, ops.w, desc, ops.rowmap, cols)
+
 
 def execute_program(sched: FabricProgram, x_u: np.ndarray,
                     w_us: Sequence[np.ndarray],
@@ -1326,8 +1454,14 @@ def execute_program(sched: FabricProgram, x_u: np.ndarray,
     at schedule time, so execution is unaffected.
 
     ``device`` (``None``: the GPU) is where every launch's block states
-    live and its engine call runs; images go there and come back per
-    launch.
+    live and its engine call runs.  Each integer class without a fault
+    model uploads its operands once (:func:`device_operands`) and packs
+    every launch's images there (:func:`pack_blocks_device`); a float
+    class, and every class under an active fault model, packs on the
+    host (:func:`pack_blocks`) and uploads each image.  Counters
+    ``fabric.packed_on_device`` and ``fabric.packed_on_host`` count the
+    launches of each.  An integer launch brings back its accumulator
+    rows alone, a float launch its whole image.
     """
     dev = engine.resolve_device(device)
     cfg = sched.cfg
@@ -1386,41 +1520,8 @@ def execute_program(sched: FabricProgram, x_u: np.ndarray,
     # float chaining state: (gemm, m, n0) -> (cols,) wide acc image
     accs: Dict[Tuple[int, int, int], np.ndarray] = {}
 
-    def pack_blocks(c: str, tasks_slots, n_slots: int) -> np.ndarray:
-        """Vectorized pack: all (task, block-slot) pairs of one launch.
-
-        Bit-plane transposition runs once per bit over every block at
-        once (numpy broadcasting) instead of once per task -- identical
-        images to ``harness.pack_state`` per block, but the host-side
-        cost no longer scales with task count.
-        """
-        _, lay = progs[c]
-        kt = sched.class_kt(c)
-        a_vals = np.zeros((n_slots, kt, cfg.cols), np.uint64)
-        b_vals = np.zeros((n_slots, kt, cfg.cols), np.uint64)
-        for t, slot in tasks_slots:
-            kw, nw = t.k1 - t.k0, t.n1 - t.n0
-            a_vals[slot, :kw, :] = \
-                x_encs[c][t.m, t.k0:t.k1][:, None]           # -> cols
-            b_vals[slot, :kw, :nw] = w_us[t.gemm][t.k0:t.k1, t.n0:t.n1]
-        arrs = np.zeros((n_slots, cfg.rows, cfg.cols), bool)
-        bases = np.array([lay.base(i) for i in range(kt)])
-        for name, vals in (("a", a_vals), ("b", b_vals)):
-            off, width = lay.fields[name]
-            for i in range(width):
-                arrs[:, bases + off + i, :] = \
-                    ((vals >> np.uint64(i)) & np.uint64(1)).astype(bool)
-        if class_info[c].is_float:
-            fmt = class_info[c].fmt
-            for t, slot in tasks_slots:
-                if t.k0 == 0:
-                    continue          # fresh accumulator (+0 image)
-                acc = accs[(t.gemm, t.m, t.n0)]
-                floatprog.fdot_set_acc(arrs[slot], fmt, acc)
-        return arrs
-
     def unpack_int(c: str, res: np.ndarray) -> np.ndarray:
-        """(blocks, rows, cols) result image -> (blocks, cols) accs."""
+        """(blocks, acc_bits, cols) accumulator rows -> (blocks, cols)."""
         _, lay = progs[c]
         acc = np.zeros((res.shape[0], res.shape[2]), np.uint64)
         for i in range(lay.acc_bits):
@@ -1452,19 +1553,20 @@ def execute_program(sched: FabricProgram, x_u: np.ndarray,
         launch_idx[0] += 1
         return out
 
-    def launch(c: str, arrs: np.ndarray) -> np.ndarray:
-        blocks = arrs.shape[0]
-        with trace.span("fabric.h2d"):
-            states = engine.CRState(
-                array=torch.from_numpy(arrs).to(dev),
-                carry=torch.zeros((blocks, cfg.cols), dtype=torch.bool,
-                                  device=dev),
-                tag=torch.ones((blocks, cfg.cols), dtype=torch.bool,
-                               device=dev))
+    def launch(c: str, array: torch.Tensor) -> np.ndarray:
+        blocks = array.shape[0]
+        states = engine.CRState(
+            array=array,
+            carry=torch.zeros((blocks, cfg.cols), dtype=torch.bool,
+                              device=dev),
+            tag=torch.ones((blocks, cfg.cols), dtype=torch.bool, device=dev))
         out = engine.execute_blocks(progs[c][0], states, executor=executor,
                                     packed=packed)
         with trace.span("fabric.d2h"):
-            return out.array.cpu().numpy()
+            if class_info[c].is_float:
+                return out.array.cpu().numpy()
+            # an int result is its accumulator rows alone
+            return out.array[:, :progs[c][1].acc_bits].cpu().numpy()
 
     def consume(c: str, slots, res: np.ndarray) -> None:
         info = class_info[c]
@@ -1489,6 +1591,19 @@ def execute_program(sched: FabricProgram, x_u: np.ndarray,
             return c, rnd.tasks[0].k0
         return c, None
 
+    # integer classes pack on the device, from operands uploaded once;
+    # the fault model's flips and the float chain need host images
+    on_card: Dict[str, DeviceOperands] = {}
+    if fm is None:
+        with trace.span("fabric.h2d"):
+            for c in classes:
+                info = class_info[c]
+                if not info.is_float and info.bits <= DEVICE_PACK_MAX_BITS:
+                    on_card[c] = device_operands(
+                        progs[c][1], info.bits, x_encs[c],
+                        {g: w_us[g] for g in range(len(w_us))
+                         if infos[g].name == c}, dev)
+
     # group consecutive batchable rounds, then chunk each group
     groups: List[Tuple[str, List[Round]]] = []
     for rnd in sched.rounds:
@@ -1508,11 +1623,30 @@ def execute_program(sched: FabricProgram, x_u: np.ndarray,
                      for ri, rnd in enumerate(chunk) for t in rnd.tasks]
             # the last chunk stays zero-padded to the chunk shape so ONE
             # compiled wide fn serves every chunk of the group
-            with trace.span("fabric.pack"):
-                arrs = pack_blocks(c, slots, chunk_r * n_compute)
-                if fm is not None:
-                    arrs = faulted(arrs)
-            res = launch(c, arrs)
+            n_slots = chunk_r * n_compute
+            if c in on_card:
+                ops = on_card[c]
+                with trace.span("fabric.pack"):
+                    desc = pack_descriptor(slots, n_slots, ops.col_off,
+                                           ops.kt, cfg.cols)
+                with trace.span("fabric.h2d"):
+                    desc = torch.from_numpy(desc).to(dev)
+                with trace.span("fabric.pack"):
+                    array = pack_blocks_device(ops, desc, cfg.cols)
+                trace.count("fabric.packed_on_device")
+            else:
+                info = class_info[c]
+                with trace.span("fabric.pack"):
+                    arrs = pack_blocks(progs[c][1], cfg.cols, slots, n_slots,
+                                       x_encs[c], w_us,
+                                       fmt=info.fmt if info.is_float
+                                       else None, accs=accs)
+                    if fm is not None:
+                        arrs = faulted(arrs)
+                with trace.span("fabric.h2d"):
+                    array = torch.from_numpy(arrs).to(dev)
+                trace.count("fabric.packed_on_host")
+            res = launch(c, array)
             with trace.span("fabric.consume"):
                 consume(c, slots, res)
             trace.count("fabric.slots_used", len(slots))

@@ -383,13 +383,56 @@ def test_fabric_on_card_runs_the_kernel_and_equals_cpu(card, bits):
     x = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (3, 300))
     w = rng.integers(-(1 << (bits - 1)), 1 << (bits - 1), (300, 50))
     before = bp.lane_fold_cuda.launches
+    packs = fabric.fpk.fabric_pack_cuda.launches
     got = fabric.fabric_matmul(x, w, nbits=bits, signed=True, device=card)
     folds = bp.lane_fold_cuda.launches - before
+    packs = fabric.fpk.fabric_pack_cuda.launches - packs
     cpu = fabric.fabric_matmul(x, w, nbits=bits, signed=True, device="cpu")
     np.testing.assert_array_equal(got.out, cpu.out)
     np.testing.assert_array_equal(np.asarray(got.out, np.int64),
                                   x.astype(np.int64) @ w)
     assert (folds > 0) == (bits == 4)
+    # every launch of an int program packs its images on the card
+    assert packs > 0 and (bits != 4 or packs == folds)
+
+
+@pytest.mark.parametrize("rows,cols,bits", [
+    (512, 40, 4), (512, 40, 8), (512, 40, 16), (128, 8, 32), (9, 7, 8),
+    (3, 1, 8)])
+def test_fabric_pack_kernel_matches_plain(card, rows, cols, bits):
+    """The pack kernel against its plain version on random operands, row
+    maps and descriptors (a padded slot among them): bytes and 32-bit
+    words, slot images of 4k bytes and of others; one launch a call."""
+    from repro_torch.kernels import fabric_pack as fpk
+
+    before = fpk.fabric_pack_cuda.launches
+    chip_smoke.pack_random_case(np.random.default_rng(rows + bits), rows,
+                                cols, bits, card, tuples=min(4, rows // 2))
+    assert fpk.fabric_pack_cuda.launches == before + 1
+
+
+def test_fabric_pack_at_the_launch_shape_equals_plain_and_host(card):
+    """A W4A4 gate+up launch of 512 x 512 x 40 packed on the card equals
+    its plain version and the host's numpy pack (``chip_smoke``'s
+    phase)."""
+    st = chip_smoke.phase_fabric_pack(np.random.default_rng(62))
+    assert st["shape"] == [512, 512, 40] and st["max_abs_err"] == 0
+
+
+def test_fabric_pack_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels import fabric_pack as fpk
+
+    x = torch.zeros((2, 4), dtype=torch.uint8, device=card)
+    w = torch.zeros((4, 8), dtype=torch.uint8, device=card)
+    d = torch.zeros((3, fpk.DESC_FIELDS), dtype=torch.int32, device=card)
+    rm = torch.full((16,), -1, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        fpk.fabric_pack_cuda(x.to(torch.int16), w.to(torch.int16), d, rm, 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        fpk.fabric_pack_cuda(x, w.t().contiguous().t(), d, rm, 8)
+    with pytest.raises(ValueError, match="one device"):
+        fpk.fabric_pack_cuda(x, w, d.cpu(), rm, 8)
+    assert not fpk.fabric_pack_cuda(x, w, d, rm, 8).any()
 
 
 def test_lane_fold_op_launches_and_counts_per_call(card):

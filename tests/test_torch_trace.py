@@ -134,11 +134,15 @@ def test_fabric_linear_records_each_launch_and_its_slots(monkeypatch):
         "fabric.schedule", "fabric.encode", "fabric.execute",
         "fabric.unbias", "fabric.cost"]
     ex = names.index("fabric.execute")
-    per_launch = ["fabric.pack", "fabric.h2d", "engine.execute_blocks",
-                  "fabric.d2h", "fabric.consume"]
+    # the int class's operands go up once; each launch makes its slot
+    # descriptor, uploads it and packs its images on the device
+    per_launch = ["fabric.pack", "fabric.h2d", "fabric.pack",
+                  "engine.execute_blocks", "fabric.d2h", "fabric.consume"]
     assert launched
     assert [names[j] for j in _children(spans, ex)] \
-        == per_launch * len(launched)
+        == ["fabric.h2d"] + per_launch * len(launched)
+    assert counters["fabric.packed_on_device"] == len(launched)
+    assert "fabric.packed_on_host" not in counters
     assert counters["engine.blocks_launched"] \
         == sum(engine.canonical_block_budget(b) for b in launched)
     specs = tuple(fabric.GemmSpec(f"proj{g}", 2, 64, n)
