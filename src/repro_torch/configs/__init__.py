@@ -17,9 +17,16 @@ ARCHS = {
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
+#: architectures of the port alone, which the reference's zoo lacks (the
+#: parity tests iterate ``list_archs()``, the reference's ten)
+PORT_ARCHS = {
+    "deepseek-v2-lite": "deepseek_v2_lite",
+}
+
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    mod = importlib.import_module(f".{ARCHS[arch]}", __package__)
+    mod = importlib.import_module(f".{ARCHS.get(arch) or PORT_ARCHS[arch]}",
+                                  __package__)
     return mod.smoke_config() if smoke else mod.config()
 
 

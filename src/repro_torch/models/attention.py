@@ -57,31 +57,34 @@ def _repeat_kv(k, n_heads):
 
 
 def chunked_attention(q, k, v, pos_q, pos_k, *, causal: bool,
-                      window=None, chunk: int = 1024):
+                      window=None, chunk: int = 1024, scale=None):
     """Online-softmax attention, looping over KV chunks.
 
-    q: (B, Sq, H, hd);  k, v: (B, Sk, H, hd) (KV already repeated);
-    pos_q: (B, Sq), pos_k: (B, Sk) int32 (-1 = invalid key slot).
+    q, k: (B, Sq | Sk, H, hd);  v: (B, Sk, H, hd_v) (KV already repeated);
+    pos_q: (B, Sq), pos_k: (B, Sk) int32 (-1 = invalid key slot); the
+    scores carry ``scale`` (``None``: ``hd**-0.5``).
     Working set per step is O(Sq * chunk), never O(Sk^2).  On a mesh it
     runs on each rank's shards (``common.per_shard``).
     """
     return per_shard(functools.partial(
-        _chunked_attention, causal=causal, window=window, chunk=chunk),
-        q, k, v, pos_q, pos_k, out_like=q)
+        _chunked_attention, causal=causal, window=window, chunk=chunk,
+        scale=scale), q, k, v, pos_q, pos_k, out_like=q)
 
 
-def _chunked_attention(q, k, v, pos_q, pos_k, *, causal, window, chunk):
+def _chunked_attention(q, k, v, pos_q, pos_k, *, causal, window, chunk,
+                       scale=None):
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
     assert sk % chunk == 0, (sk, chunk)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
 
     qf = q.to(torch.float32) * scale
     # the accumulators take qf's layout (its placements on a mesh)
     m = torch.full_like(qf[..., 0], NEG_INF)
     l = torch.zeros_like(m)
-    acc = torch.zeros_like(qf)
+    acc = torch.zeros_like(qf) if v.shape[-1] == hd \
+        else qf.new_zeros(qf.shape[:-1] + v.shape[-1:])
     for c0 in range(0, sk, chunk):
         kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
         pc = pos_k[:, c0:c0 + chunk]
@@ -255,22 +258,42 @@ def prefill_kv_cache(params, x, cfg, positions, capacity, window=None):
     b, s, d = x.shape
     _, k, v = _qkv(params, x, x, cfg, positions, positions)
     cap = capacity if window is None else min(capacity, window)
+    ks, vs, ps = _last(k, cap), _last(v, cap), _last(positions, cap, -1)
+    return _ring_place(_kv_values(cfg, ks, vs, ps), ps, cap)
+
+
+def _last(t, cap, fill=0):
+    """The last ``cap`` entries of ``t`` along dim 1, or ``t`` padded with
+    ``fill`` to ``cap``."""
+    s = t.shape[1]
     if s >= cap:
-        ks, vs, ps = k[:, -cap:], v[:, -cap:], positions[:, -cap:]
-    else:
-        pad = cap - s
-        ks = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        vs = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        ps = torch.nn.functional.pad(positions, (0, pad), value=-1)
+        return t[:, -cap:]
+    pad = (0, 0) * (t.ndim - 2) + (0, cap - s)
+    return torch.nn.functional.pad(t, pad, value=fill)
+
+
+def _ring_place(vals, ps, cap):
+    """The leaves ``vals`` (each (B, cap, ...)) of tokens at positions
+    ``ps`` (B, cap; -1 an empty entry) moved to their ring slots."""
     # ring-consistent placement: slot = pos % cap.  A row's positions
     # are consecutive from 0 (prefill's), so its slots are a permutation
     # of the ring and the cache is gathered by the inverse permutation:
     # out of place, which keeps each leaf's layout on a mesh (an indexed
     # write into a fresh cache would replicate it on every rank)
-    ring = torch.arange(cap, device=x.device)[None, :] % cap
+    ring = torch.arange(cap, device=ps.device)[None, :] % cap
     inv = torch.argsort(torch.where(ps >= 0, ps % cap, ring), dim=1)
     cache = {}
-    for n, val in _kv_values(cfg, ks, vs, ps).items():
+    for n, val in vals.items():
         idx = inv.reshape(inv.shape + (1,) * (val.ndim - 2))
         cache[n] = torch.gather(val, 1, idx.expand(val.shape))
     return cache
+
+
+def ring_cache(leaves: dict, positions, cap: int) -> dict:
+    """A decode cache of ``cap`` slots from a prefilled sequence's cache
+    ``leaves`` (each (B, S, ...)) at ``positions`` (B, S): the last
+    ``cap`` tokens at their ring slots, ``"pos"`` beside them."""
+    ps = _last(positions, cap, -1)
+    vals = {n: _last(v, cap) for n, v in leaves.items()}
+    vals["pos"] = ps
+    return _ring_place(vals, ps, cap)

@@ -19,6 +19,8 @@ import contextlib
 import numpy as np
 import torch
 
+from .qweight import dq
+
 
 # ---------------------------------------------------------------------------
 # Sharding: specs are written with logical axes; `shard()` silently drops
@@ -272,6 +274,46 @@ def rope(q, positions, theta):
     q1, q2 = q[..., :half], q[..., half:]
     out = torch.cat([q1 * cos - q2 * sin, q2 * cos + q1 * sin], -1)
     return out.to(q.dtype)
+
+
+def mlp_apply(params, x):
+    """The dense FFN: SwiGLU (``w_gate``, ``w_up``, ``w_down``) or GELU."""
+    if "w_gate" in params:
+        h = silu(x @ dq(params["w_gate"])) * (x @ dq(params["w_up"]))
+    else:
+        h = gelu(x @ dq(params["w_up"]))
+    h = shard(h, "batch", None, "model")
+    return shard(h @ dq(params["w_down"]), "batch", None, None)
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn, device=None):
+    """YaRN's float32 inverse frequencies of a ``dim``-wide rotary
+    embedding, as DeepSeek's released code computes them: ``f_i =
+    theta**(-2i/dim)``, ``r_i`` the linear ramp from 0 to 1 over the
+    pairs ``yarn.correction_range``, and ``f_i / factor * r_i + f_i * (1
+    - r_i)``."""
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)
+    f = 1.0 / (theta ** (2 * i / dim))
+    low, high = yarn.correction_range(dim, theta)
+    if low == high:
+        high += 0.001
+    r = torch.clamp((i - low) / (high - low), 0, 1)
+    return f / yarn.factor * r + f * (1 - r)
+
+
+def rope_pairs(x, positions, inv_freq, scale: float = 1.0):
+    """DeepSeek's rotary embedding: the pairs ``(2i, 2i + 1)`` of ``x``
+    (..., S, H, d) rotate together by ``positions * inv_freq[i]``; as the
+    released code does, the result is laid out de-interleaved (the even
+    members, then the odd), a permutation that the dot products of
+    queries and keys rotated alike do not see.  cos and sin carry
+    ``scale``."""
+    ang = positions[..., :, None].to(torch.float32) * inv_freq
+    cos = (torch.cos(ang) * scale)[..., None, :]
+    sin = (torch.sin(ang) * scale)[..., None, :]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
 
 
 def dense_init(key, shape, in_axis=0, dtype=torch.bfloat16, device=None):

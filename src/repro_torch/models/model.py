@@ -3,7 +3,11 @@
 The counterpart of ``repro.models.model``.  Layers are stacked per
 repeating unit, as in the reference: every leaf under ``"unit"`` has a
 leading layer axis, and the reference's ``lax.scan`` over that axis is a
-loop that indexes it.  Three execution modes:
+loop that indexes it.  A config with leading dense layers
+(``first_k_dense``, DeepSeek-V2's) keeps them as a list under
+``"lead"``, ahead of the stacked unit, and their caches so; an MLA
+config's attention blocks are ``models/mla.py``'s, with its latent cache
+under ``"mla"`` in place of ``"kv"``.  Three execution modes:
 
 * ``apply``       -- full-sequence forward (training, encoder)
 * ``prefill``     -- full-sequence forward that also emits decode caches
@@ -31,8 +35,9 @@ from repro_torch import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import resolve_device
 from . import attention as attn
-from . import common, moe as moe_mod, rglru as rg, ssm as ssm_mod
-from .common import dense_init, gelu, rmsnorm, shard, silu
+from . import common, mla as mla_mod, moe as moe_mod, rglru as rg
+from . import ssm as ssm_mod
+from .common import dense_init, mlp_apply, rmsnorm, shard
 from .qweight import dq, tree_leaves, tree_map
 
 
@@ -49,19 +54,17 @@ def mlp_init(key, cfg, device=None):
     return p
 
 
-def mlp_apply(params, x):
-    if "w_gate" in params:
-        h = silu(x @ dq(params["w_gate"])) * (x @ dq(params["w_up"]))
-    else:
-        h = gelu(x @ dq(params["w_up"]))
-    h = shard(h, "batch", None, "model")
-    return shard(h @ dq(params["w_down"]), "batch", None, None)
-
-
 # ---------------------------------------------------------------------------
 # Blocks (one per layer type)
 # ---------------------------------------------------------------------------
-def _block_init(key, cfg: ModelConfig, btype: str, device=None):
+def _is_mla(cfg) -> bool:
+    return getattr(cfg, "mla", None) is not None
+
+
+def _block_init(key, cfg: ModelConfig, btype: str, device=None,
+                dense=False):
+    """``dense``: a leading layer, whose FFN is the dense MLP whatever
+    ``cfg.moe`` says."""
     d = cfg.d_model
     ks = common.split_keys(key, 4)
 
@@ -70,9 +73,10 @@ def _block_init(key, cfg: ModelConfig, btype: str, device=None):
 
     p = {"ln1": norm()}
     if btype == "attn":
-        p["attn"] = attn.attn_init(ks[0], cfg, device=device)
+        p["attn"] = (mla_mod.mla_init if _is_mla(cfg) else attn.attn_init)(
+            ks[0], cfg, device=device)
         p["ln2"] = norm()
-        if cfg.moe is not None:
+        if cfg.moe is not None and not dense:
             p["moe"] = moe_mod.moe_init(ks[1], cfg, device=device)
         elif cfg.d_ff > 0:
             p["mlp"] = mlp_init(ks[1], cfg, device=device)
@@ -99,9 +103,9 @@ def _window_for(cfg, btype):
     return cfg.sliding_window
 
 
-def _ffn(params, cfg, x):
+def _ffn(params, cfg, x, mode="train", layer=0):
     if "moe" in params:
-        y, aux = moe_mod.moe_apply(params["moe"], x, cfg)
+        y, aux = moe_mod.moe_apply(params["moe"], x, cfg, mode, layer)
         return y, aux
     if "mlp" in params:
         return mlp_apply(params["mlp"], x), 0.0
@@ -109,14 +113,29 @@ def _ffn(params, cfg, x):
 
 
 def _block_apply(params, h, cfg, btype, positions, mode, cache,
-                 enc_out=None, enc_pos=None, causal=True):
+                 enc_out=None, enc_pos=None, causal=True, layer=0):
     """Returns (h, new_cache, aux).  An attention block records the
     spans ``model.attention`` (its norm, attention, KV write and
-    residual) and ``model.mlp`` (norm, FFN and residual)."""
+    residual) and ``model.mlp`` (norm, FFN and residual).  ``layer``
+    is the layer's index in the model (the MoE's device counters)."""
     new_cache = {}
     aux = 0.0
 
-    if btype in ("attn", "xattn"):
+    if btype == "attn" and _is_mla(cfg):
+        with trace.span("model.attention"):
+            x = rmsnorm(h, params["ln1"], cfg.norm_eps)
+            if mode == "decode":
+                y, new_cache["mla"] = mla_mod.mla_decode(
+                    params["attn"], x, cache["mla"], cfg, positions[:, 0])
+            else:
+                cap = (cache["mla"]["c"].shape[1] if mode == "prefill"
+                       else None)
+                y, c = mla_mod.mla_apply(params["attn"], x, cfg, positions,
+                                         cap)
+                if mode == "prefill":
+                    new_cache["mla"] = c
+            h = h + y
+    elif btype in ("attn", "xattn"):
         with trace.span("model.attention"):
             x = rmsnorm(h, params["ln1"], cfg.norm_eps)
             window = _window_for(cfg, btype)
@@ -139,9 +158,10 @@ def _block_apply(params, h, cfg, btype, positions, mode, cache,
                                     causal=False, kv_src=enc_out,
                                     kv_positions=enc_pos)
                 h = h + y
+    if btype in ("attn", "xattn"):
         with trace.span("model.mlp"):
             f = rmsnorm(h, params["ln2"], cfg.norm_eps)
-            y, aux = _ffn(params, cfg, f)
+            y, aux = _ffn(params, cfg, f, mode, layer)
             if y is not None:
                 h = h + y
         return h, new_cache, aux
@@ -163,7 +183,7 @@ def _block_apply(params, h, cfg, btype, positions, mode, cache,
             new_cache["rec"] = c
         h = h + y
         f = rmsnorm(h, params["ln2"], cfg.norm_eps)
-        y, _ = _ffn(params, cfg, f)
+        y, _ = _ffn(params, cfg, f, mode, layer)
         if y is not None:
             h = h + y
 
@@ -171,6 +191,9 @@ def _block_apply(params, h, cfg, btype, positions, mode, cache,
 
 
 def _block_cache(cfg, btype, batch, capacity, device=None):
+    if btype == "attn" and _is_mla(cfg):
+        return {"mla": mla_mod.init_mla_cache(cfg, batch, capacity,
+                                              device=device)}
     if btype in ("attn", "xattn"):
         window = _window_for(cfg, btype)
         return {"kv": attn.init_kv_cache(cfg, batch, capacity, window,
@@ -334,6 +357,8 @@ class LM:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.unit, self.n_units, self.rest = cfg.scan_plan()
+        # leading layers before the stacked unit, each with the dense FFN
+        self.lead = ["attn"] * getattr(cfg, "first_k_dense", 0)
         if cfg.is_encdec:
             # decoder layers are xattn; encoder handled separately
             self.unit, self.n_units, self.rest = ["xattn"], cfg.n_layers, []
@@ -349,12 +374,16 @@ class LM:
             return {f"b{i}": _block_init(key, cfg, t, dev)
                     for i, t in enumerate(self.unit)}
 
-        params = {
-            "embed": dense_init(key, (cfg.vocab, cfg.d_model), device=dev),
+        params = {"embed": dense_init(key, (cfg.vocab, cfg.d_model),
+                                      device=dev)}
+        if self.lead:
+            params["lead"] = [_block_init(key, cfg, t, dev, dense=True)
+                              for t in self.lead]
+        params.update({
             "unit": _stack([unit_init() for _ in range(self.n_units)]),
             "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                       device=dev),
-        }
+        })
         if self.rest:
             params["rest"] = [_block_init(key, cfg, t, dev)
                               for t in self.rest]
@@ -372,19 +401,22 @@ class LM:
 
     # -- stacked group execution ---------------------------------------------
     def _run_unit(self, stacked, h, positions, mode, caches, unit=None,
-                  enc_out=None, enc_pos=None, causal=True, remat=None):
+                  enc_out=None, enc_pos=None, causal=True, remat=None,
+                  first=0):
         """``remat``: the policy of a training forward (``None``: the
-        config's ``remat_policy``)."""
+        config's ``remat_policy``); ``first``: the model's index of the
+        unit's first layer."""
         cfg = self.cfg
         unit = unit or self.unit
         remat = remat or cfg.remat_policy
 
-        def body(lp, h, lc):
+        def body(lp, h, lc, layer):
             new_lc, aux = {}, 0.0
             for i, t in enumerate(unit):
                 c_i = lc[f"b{i}"] if lc is not None else None
                 h, nc, a = _block_apply(lp[f"b{i}"], h, cfg, t, positions,
-                                        mode, c_i, enc_out, enc_pos, causal)
+                                        mode, c_i, enc_out, enc_pos, causal,
+                                        first + layer * len(unit) + i)
                 new_lc[f"b{i}"] = nc
                 aux = aux + a
             return h, new_lc, aux
@@ -393,7 +425,7 @@ class LM:
             body = _remat(body, remat)
         new_caches, aux = [], 0.0
         for layer, lp in enumerate(_unstack(stacked)):
-            h, new_lc, a = body(lp, h, _layer(caches, layer))
+            h, new_lc, a = body(lp, h, _layer(caches, layer), layer)
             new_caches.append(new_lc)
             aux = aux + a
         return h, _stack(new_caches), aux
@@ -433,21 +465,36 @@ class LM:
             positions = _positions(tokens if tokens is not None else embeds)
         with trace.span("model.embed"):
             h = self._embed(params, tokens, embeds)
+        aux = 0.0
+        new_lead = []
+        for i, t in enumerate(self.lead):
+            c_i = caches["lead"][i] if caches is not None else None
+            h, nc, a = _block_apply(params["lead"][i], h, cfg, t, positions,
+                                    mode, c_i, layer=i)
+            new_lead.append(nc)
+            aux = aux + a
         unit_caches = caches["unit"] if caches is not None else None
-        h, new_unit_caches, aux = self._run_unit(
+        first = len(self.lead)
+        h, new_unit_caches, a = self._run_unit(
             params["unit"], h, positions, mode, unit_caches,
-            enc_out=enc_out, enc_pos=enc_pos)
+            enc_out=enc_out, enc_pos=enc_pos, first=first)
+        aux = aux + a
+        first += self.n_units * len(self.unit)
         new_rest = []
         for i, t in enumerate(self.rest):
             c_i = caches["rest"][i] if caches is not None else None
             h, nc, a = _block_apply(params["rest"][i], h, cfg, t,
-                                    positions, mode, c_i, enc_out, enc_pos)
+                                    positions, mode, c_i, enc_out, enc_pos,
+                                    layer=first + i)
             new_rest.append(nc)
             aux = aux + a
         with trace.span("model.head"):
             logits = self._head(params, h)
-        new_caches = ({"unit": new_unit_caches, "rest": new_rest}
-                      if mode != "train" else None)
+        new_caches = None
+        if mode != "train":
+            new_caches = {"unit": new_unit_caches, "rest": new_rest}
+            if self.lead:
+                new_caches["lead"] = new_lead
         return logits, new_caches, aux
 
     def apply(self, params, tokens=None, embeds=None, positions=None,
@@ -477,7 +524,11 @@ class LM:
             one_unit)
         rest = [_block_cache(cfg, t, batch, capacity, dev)
                 for t in self.rest]
-        return {"unit": unit_cache, "rest": rest}
+        caches = {"unit": unit_cache, "rest": rest}
+        if self.lead:
+            caches["lead"] = [_block_cache(cfg, t, batch, capacity, dev)
+                              for t in self.lead]
+        return caches
 
     def prefill(self, params, tokens=None, embeds=None, capacity=None,
                 enc_out=None, enc_pos=None):

@@ -18,6 +18,11 @@ with.  A counter is a name and a sum.  ``take`` adds
 ``engine.compile_misses``: the engine's compile-cache misses since
 ``enable`` or the last ``take``, read from ``engine.compile_cache_stats``.
 
+A device counter (``count_device``) is an int64 table on the device that
+each call adds a device tensor to, in place, at a row the caller names:
+one add and no host sync a call.  ``device_counters`` brings the tables
+to the host once, when the caller asks; ``take`` clears them.
+
 Spans never synchronise the device: a span that should hold the device's
 time ends at a host sync the program already makes (a ``.cpu()``), and
 one that does not shows the time the host took to enqueue.  Spans touch
@@ -36,7 +41,8 @@ import functools
 import time
 from contextlib import nullcontext
 
-__all__ = ["span", "spanned", "count", "enable", "disable", "take"]
+__all__ = ["span", "spanned", "count", "count_device", "recording",
+           "device_counters", "enable", "disable", "take"]
 
 #: what ``span`` returns while the recorder is off
 NULL = nullcontext()
@@ -52,6 +58,7 @@ class _Record:
         self.spans = []           # [name, t0_ns, t1_ns, parent, tags]
         self.stack = []           # indices of the open spans
         self.counters = {}
+        self.device = {}          # name -> int64 table on the device
         self.misses = _compile_misses()
 
 
@@ -116,6 +123,40 @@ def count(name: str, n: int = 1) -> None:
         rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def recording() -> bool:
+    """Whether the recorder is on (a caller that would compute a
+    counter's value only for the recorder asks first)."""
+    return _rec is not None
+
+
+def count_device(name: str, values, row: int = 0) -> None:
+    """Add the device tensor ``values`` to row ``row`` of device counter
+    ``name`` (an int64 table of ``values``' shape a row, grown as rows
+    are named), in place and without a host sync; nothing while the
+    recorder is off."""
+    rec = _rec
+    if rec is None:
+        return
+    t = rec.device.get(name)
+    if t is None or t.shape[0] <= row:
+        import torch
+        grown = torch.zeros((row + 1,) + tuple(values.shape),
+                            dtype=torch.int64, device=values.device)
+        if t is not None:
+            grown[:t.shape[0]] = t
+        rec.device[name] = t = grown
+    t[row].add_(values)
+
+
+def device_counters() -> dict:
+    """The device counters recorded so far, each brought to the host (one
+    sync), by name; ``take`` clears them."""
+    rec = _rec if _rec is not None else _kept
+    if rec is None:
+        return {}
+    return {n: t.cpu() for n, t in rec.device.items()}
+
+
 def enable(annotate: bool = False) -> None:
     """Start recording (or go on with the record kept by ``disable``)."""
     global _rec, _kept, _annotate
@@ -134,8 +175,8 @@ def disable() -> None:
 
 
 def take():
-    """``(spans, counters)`` recorded so far, and a fresh record.  A span
-    still open has ``t1_ns`` None."""
+    """``(spans, counters)`` recorded so far, and a fresh record (the
+    device counters cleared).  A span still open has ``t1_ns`` None."""
     global _rec, _kept
     rec = _rec if _rec is not None else _kept
     if rec is None:

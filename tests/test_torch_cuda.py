@@ -480,3 +480,76 @@ def test_cse_graph_on_the_card_launches_like_eager(card):
     for g, e, c in zip(got, eager, cpu):
         assert torch.equal(g, e) and torch.equal(g.cpu(), c)
     assert [k.type for k in fn.graphs] == ["cuda", "cpu"]
+
+
+def test_mla_moe_layers_at_published_widths_against_reference(card):
+    """deepseek-v2-lite at its published widths, cut to its leading dense
+    layer and one MoE layer: a 480-token prefill into a 1024-slot latent
+    cache (expanded keys and values, the experts grouped by
+    ``torch._grouped_mm``), then 32 decode steps through the cache
+    (``W_uk``/``W_uv`` absorbed, float32-output products), against the
+    plain float32 reference's forward over the 512 tokens.  Bounds as in
+    ``test_torch_arch_mla_moe.py``: the median position within 0.1 (bf16
+    rounding; the fp8 control fails it), and so the median of the decoded
+    positions on their own, which a decode without YaRN's ``mscale**2``
+    fails; every position within 0.6 (a router tie flipped by
+    rounding)."""
+    import dataclasses
+    import importlib
+    import importlib.util
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    from repro_torch.models.model import LM
+
+    bench = Path(__file__).resolve().parents[1] / "portbench"
+    for name, path, pkg in (("portbench_reference", bench / "reference",
+                             True),
+                            ("portbench_pb_mla_moe", bench / "pb_mla_moe.py",
+                             False)):
+        spec = importlib.util.spec_from_file_location(
+            name, path / "__init__.py" if pkg else path,
+            submodule_search_locations=[str(path)] if pkg else None)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    ref = importlib.import_module("portbench_reference.deepseek_v2")
+    weights = sys.modules["portbench_pb_mla_moe"].weights
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), n_layers=2)
+    w = weights(cfg, 2**31 + 7, card)
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, 512), dtype=torch.int32, device=card)
+    want = ref.forward(w, cfg, tokens)
+    model = LM(cfg, device=card)
+    def errors(scale=None):
+        with torch.no_grad():
+            logits, caches = model.prefill(w, tokens=tokens[None, :480],
+                                           capacity=1024)
+            got = [logits[0]]
+            real = mla.softmax_scale
+            if scale is not None:
+                mla.softmax_scale = scale
+            try:
+                for i in range(480, 512):
+                    step, caches = model.decode_step(
+                        w, caches, tokens[None, i:i + 1],
+                        torch.tensor([i], dtype=torch.int32, device=card))
+                    got.append(step[0])
+            finally:
+                mla.softmax_scale = real
+        return (torch.cat(got).float() - want).abs().amax(-1)
+
+    err = errors()
+    print("mla_moe prefill+decode logit error: median", err.median().item(),
+          "max", err.max().item(), "decode median", err[480:].median().item(),
+          "decode max", err[480:].max().item())
+    assert err.median().item() < 0.1 and err.max().item() < 0.6
+    assert err[480:].median().item() < 0.1
+    ctl = (ref.forward(w, cfg, tokens, quant="fp8") - want).abs().amax(-1)
+    print("fp8 control median", ctl.median().item(), "decode median",
+          ctl[480:].median().item())
+    assert ctl.median().item() > 0.1 and ctl[480:].median().item() > 0.1
+    fault = errors(lambda c: c.mla.qk_head_dim ** -0.5)
+    print("decode without mscale**2: decode median",
+          fault[480:].median().item())
+    assert fault[480:].median().item() > 0.1
