@@ -68,7 +68,13 @@ through their public entry points:
   loop and a ``FabricAttentionBlock`` head with KV appends; the fault
   hooks (parity scrub, spare-block repair); the fuzz corpus and a fuzz
   budget through every executor variant; and the packed against the
-  bool interior on 512-block launches.
+  bool interior on 512-block launches;
+* decode attention: the ``decode_attention`` kernel at
+  h2o-danube-1.8b's decode shape (16 lanes of 2048 slots) against its
+  plain version and the widened path, timed at three live lengths beside
+  their byte bound and SDPA; one decode step of the full-width model
+  with the kernel against the plain path (launches, counters, logits,
+  the allocator's peak).
 
 Every result is checked exactly against numpy or the port's oracles, or
 within a stated tolerance.  Prints one JSON object per phase, the card's
@@ -109,6 +115,7 @@ from repro_torch.core import (engine, faults, floatprog,  # noqa: E402
 from repro_torch.kernels import bitplane_ops as bp  # noqa: E402
 from repro_torch.kernels import bitserial_matmul as bsm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import decode_attention as dattn  # noqa: E402
 from repro_torch.kernels import fabric_pack as fpk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -882,6 +889,10 @@ def attn_inputs(rng, cfg, s):
 
 
 FLASH_F32_TOL = 2e-4     # tests/test_kernels.py's tolerance
+#: decode attention against its plain version and the widened path: the
+#: same float32 products and exponentials summed in another order (per
+#: chunk, then merged), at most ~6e-7 apart at unit-scale values
+DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 #: below this the bf16 check is absolute: float32 sums taken in another
 #: order differ by ~1e-6 of the terms, which is many bf16 steps of an
 #: output that cancels to near zero
@@ -1291,6 +1302,221 @@ def phase_fabric_pack(rng, dev="cuda"):
              "roofline_pct": 100 * bms / kern["ms"], "also_checked": others}
     emit({"phase": "fabric_pack_vs_plain", "ok": True, **stats})
     return stats
+
+
+#: (B, H, KV, hd, cap, window) of h2o-danube-1.8b's decode in the chat
+#: cell (16 slots of 2048), and the live lengths its kernel is timed at
+DECODE_SHAPE = (16, 32, 8, 80, 2048, 4096)
+DECODE_LIVE = (256, 1024, 2048)
+#: the lanes' live lengths of the decode step held against the plain
+#: path: the chat mix's (median prompt 256 plus an answer on the way)
+DECODE_STEP_LENS = (37, 96, 180, 260, 300, 330, 360, 380, 400, 430, 520,
+                    600, 700, 900, 1200, 1700)
+
+
+def decode_plain_path(q, k, v, pos, cur, window):
+    """``attn_decode``'s path for a cache the kernel does not take: the
+    cache widened to float32, repeated to the query heads,
+    ``_attend_cache``."""
+    h = q.shape[1]
+    qh = (q.to(torch.float32) * q.shape[-1] ** -0.5)[:, None]
+    kh = mattn._repeat_kv(k.to(torch.float32), h)
+    vh = mattn._repeat_kv(v.to(torch.float32), h)
+    return mattn._attend_cache(qh, kh, vh, pos, cur[:, None],
+                               window=window)[:, 0]
+
+
+def peak_above_base(run):
+    """``run()``'s allocator peak above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def decode_step_reading(model, params, caches, tokens, pos, plain):
+    """One decode step of ``model``, warmed: its kernel launches and
+    ``attn.*`` counters; the allocator's peak above what was allocated
+    before it, for the step and for layer 0's ``attn_decode`` alone; the
+    median over 5 steps of the wall (CUDA events) and of the host's time
+    to enqueue the step; the host syncs one step makes (CUDA's sync
+    debug mode); a profile of one step.  With ``plain`` the dispatch is
+    told to take the plain path."""
+    import warnings
+
+    from repro_torch import trace
+
+    cfg = model.cfg
+    layer = {n: t[0] for n, t in caches["unit"]["b0"]["kv"].items()}
+    lp = tree_map(lambda t: t[0], params["unit"]["b0"]["attn"])
+    x = torch.randn((tokens.shape[0], 1, cfg.d_model), device=tokens.device,
+                    dtype=torch.bfloat16)
+    real = mattn._decode_kernel_takes
+    if plain:
+        mattn._decode_kernel_takes = lambda cache: False
+    try:
+        with torch.no_grad():
+            model.decode_step(params, caches, tokens, pos)
+            before = dattn.decode_attention_cuda.launches
+            trace.enable()
+            try:
+                out, peak = peak_above_base(
+                    lambda: model.decode_step(params, caches, tokens, pos))
+                _, counters = trace.take()
+            finally:
+                trace.disable()
+            launches = dattn.decode_attention_cuda.launches - before
+            _, attn_peak = peak_above_base(lambda: mattn.attn_decode(
+                lp, x, layer, cfg, pos, window=cfg.sliding_window))
+            walls, enqueue = [], []
+            for _ in range(5):
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                torch.cuda.synchronize()
+                e0.record()
+                t0 = time.perf_counter()
+                model.decode_step(params, caches, tokens, pos)
+                enqueue.append((time.perf_counter() - t0) * 1e3)
+                e1.record()
+                torch.cuda.synchronize()
+                walls.append(e0.elapsed_time(e1))
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as syncs:
+                    warnings.simplefilter("always")
+                    model.decode_step(params, caches, tokens, pos)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            prof = device_profile(
+                lambda: model.decode_step(params, caches, tokens, pos))
+    finally:
+        mattn._decode_kernel_takes = real
+    return out[0], {"launches": launches,
+                    "counters": {k: v for k, v in counters.items()
+                                 if k.startswith("attn.")},
+                    "peak_above_base_bytes": peak,
+                    "attn_decode_peak_bytes": attn_peak,
+                    "step_ms": sorted(walls)[2],
+                    "enqueue_ms": sorted(enqueue)[2],
+                    "host_syncs": len(syncs),
+                    "first_sync": str(syncs[0].message)[:200] if syncs
+                    else None, "profile": prof}
+
+
+def phase_decode_attention(rng, seed=0, shape=DECODE_SHAPE,
+                           live=DECODE_LIVE, step_lens=DECODE_STEP_LENS,
+                           cfg=None, dev="cuda"):
+    """The decode attention kernel on the card at h2o-danube-1.8b's decode
+    shape: for each live length, against its plain version and
+    ``attn_decode``'s path for other caches within ``DECODE_TOL``, the
+    same bits twice; its graph time beside the bound of the live K and V
+    rows read once at the memory rate, the plain version's event time,
+    the widened path's graph time and SDPA with ``enable_gqa`` on the
+    same bf16 inputs (a yardstick: the port never calls it).  Then one
+    decode step of the full-width model (24 layers, weights drawn on the
+    card) at the chat mix's lane lengths, with the kernel and with the
+    dispatch told to take the plain path: the kernel launched and
+    counted once a layer, nothing on the plain path, the two steps'
+    logits within the chat cell's gap limit of each other, layer 0's
+    ``attn_decode`` peak lower by at least one float32 head-repeated
+    copy of its K cache (the step's own peak is its caches' restack,
+    the same on both paths), and both steps' wall, host enqueue time,
+    host syncs and device kernels."""
+    b, h, kv, hd, cap, window = shape
+    dev = torch.device(dev)
+    built = build.build_all(("decode_attention",))
+    cases = []
+    for n in live:
+        def bf16(*sh):
+            return torch.from_numpy(rng.normal(size=sh).astype(
+                np.float32)).to(dev, torch.bfloat16)
+
+        q, k, v = bf16(b, h, hd), bf16(b, cap, kv, hd), bf16(b, cap, kv, hd)
+        pos = torch.full((b, cap), -1, dtype=torch.int32, device=dev)
+        pos[:, :n] = torch.arange(n, dtype=torch.int32, device=dev)
+        cur = torch.full((b,), n - 1, dtype=torch.int32, device=dev)
+
+        def kernel():
+            return dattn.decode_attention_cuda(q, k, v, pos, cur,
+                                               window=window)
+
+        got, again = kernel(), kernel()
+        plain = dattn.decode_attention_torch(q, k, v, pos, cur,
+                                             window=window)
+        widened = decode_plain_path(q, k, v, pos, cur, window)
+        torch.cuda.synchronize()
+        errs = {name: (got - want).abs().max().item()
+                for name, want in (("plain", plain), ("widened", widened))}
+        if not torch.equal(got, again) or not all(
+                torch.allclose(got, want, **DECODE_TOL)
+                for want in (plain, widened)):
+            raise AssertionError(f"decode_attention at live {n}: {errs}, "
+                                 f"repeatable {torch.equal(got, again)}")
+        kt = timings(kernel)
+        plain_ms = time_ms(lambda: dattn.decode_attention_torch(
+            q, k, v, pos, cur, window=window), reps=10, warmup=2)
+        wt = timings(lambda: decode_plain_path(q, k, v, pos, cur, window),
+                     reps=10, warmup=2, graph_reps=5)
+        k4, v4 = (t.transpose(1, 2).contiguous() for t in (k, v))
+        mask = (pos >= 0)[:, None, None, :]
+        lib, lib_err = try_timings(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k4, v4, attn_mask=mask, enable_gqa=True))
+        nbytes = 2 * b * n * kv * hd * 2
+        bms, bby = bound_ms(nbytes, 0, INT32_OPS_PER_S)
+        cases.append({"live": n, "max_abs_err": errs, "ms": kt["ms"],
+                      "event_ms": kt["event_ms"], "plain_event_ms": plain_ms,
+                      "widened_ms": wt["ms"],
+                      "widened_event_ms": wt["event_ms"],
+                      "library_ms": lib["ms"],
+                      "library_event_ms": lib["event_ms"],
+                      "library_error": lib_err, "bound_ms": bms,
+                      "bound_by": bby, "live_bytes": nbytes,
+                      "roofline_pct": 100 * bms / kt["ms"]})
+        del q, k, v, k4, v4, got, again, plain, widened
+
+    # one decode step of the full-width model, kernel against plain path
+    cfg = cfg or get_config("h2o-danube-1.8b")
+    model = LM(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    caches = model.init_cache(b, cap)
+    lens = torch.tensor(step_lens, dtype=torch.int32, device=dev)
+    layer_kv = caches["unit"]["b0"]["kv"]
+    for name in ("k", "v"):
+        layer_kv[name].normal_()
+    slots = torch.arange(layer_kv["pos"].shape[-1], dtype=torch.int32,
+                         device=dev)
+    layer_kv["pos"][:] = torch.where(slots[None] < lens[:, None],
+                                     slots[None], -1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1)).astype(
+        np.int32)).to(dev)
+    logits_k, with_kernel = decode_step_reading(model, params, caches,
+                                                tokens, lens, False)
+    logits_p, with_plain = decode_step_reading(model, params, caches,
+                                               tokens, lens, True)
+    layers = cfg.n_layers
+    # one layer's K cache widened to float32 and repeated to H heads
+    repeated = layer_kv["k"][0].numel() * 4 * (cfg.n_heads // cfg.n_kv_heads)
+    gap = (logits_k.float() - logits_p.float()).abs().max().item()
+    step = {"lanes": b, "capacity": cap, "live": list(step_lens),
+            "layers": layers, "kernel": with_kernel, "plain": with_plain,
+            "logit_gap": gap, "repeated_copy_bytes": repeated,
+            "peak_saved_bytes": with_plain["attn_decode_peak_bytes"]
+            - with_kernel["attn_decode_peak_bytes"]}
+    if with_kernel["launches"] != layers \
+            or with_kernel["counters"] != {"attn.decode_kernel": layers} \
+            or with_plain["launches"] != 0 \
+            or with_plain["counters"] != {"attn.decode_plain": layers} \
+            or step["peak_saved_bytes"] < repeated or gap > 0.25:
+        raise AssertionError(f"danube decode step: {step}")
+    out = {"shape": list(shape), "cases": cases, "step": step,
+           "built": {k: v["seconds"] for k, v in built.items()},
+           "ptxas": [ln for v in built.values()
+                     for ln in v["log"].splitlines() if "ptxas" in ln]}
+    emit({"phase": "decode_attention_vs_plain", "ok": True, **out})
+    return out
 
 
 def device_profile(run):
@@ -2740,6 +2966,7 @@ def main():
     fabric_launches, fabric_groups = cse_checked(phase_fabric_layer,
                                                  args.seed)
     pack = cse_checked(phase_fabric_pack, rng)
+    decode = cse_checked(phase_decode_attention, rng, args.seed)
     serve_launches = cse_checked(phase_serve,
                                  args.seed)["lane_fold_launches"]
     cse_checked(phase_train, args.seed)
@@ -2781,6 +3008,17 @@ def main():
                                 "plain_event_ms", "host_pack_ms", "bound_ms",
                                 "bound_by")},
         "library_ms": None})
+    step = decode["step"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None, "launches": step["kernel"]["launches"],
+        "launches_by_path": {"danube_decode_step": step["kernel"]["launches"]},
+        "shape": decode["shape"],
+        "by_live": [{k: c[k] for k in (
+            "live", "max_abs_err", "ms", "plain_event_ms", "widened_ms",
+            "bound_ms", "bound_by", "library_ms")} for c in decode["cases"]],
+        "library": "scaled_dot_product_attention(enable_gqa=True)"})
     for name, line, st in (
             ("quant_matmul", "bitserial_matmul.py:106", gemm["quant_matmul"]),
             ("popcount_matmul", "bitserial_matmul.py:167",

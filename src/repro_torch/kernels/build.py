@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).with_name("csrc")
 BUILD = Path(__file__).with_name("build")
 SOURCES = ("lane_fold", "quant_matmul", "popcount_matmul", "flash_attention",
-           "fabric_pack")
+           "fabric_pack", "decode_attention")
 #: SASS mnemonics of the tensor cores: warpgroup (wgmma) and warp
 #: (mma.sync) MMAs, floating point and integer
 TENSOR_CORE_OPS = ("HGMMA", "IGMMA", "HMMA", "IMMA")

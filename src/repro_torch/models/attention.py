@@ -13,6 +13,8 @@ import functools
 
 import torch
 
+from .. import trace
+from ..kernels import decode_attention as dattn
 from . import common
 from .common import dense_init, per_shard, rope, shard, shard_like
 from .qweight import dq
@@ -215,8 +217,21 @@ def _set(t, slot, val):
     return torch.where(hit, shard_like(val[:, None].to(t.dtype), t), t)
 
 
+def _decode_kernel_takes(cache) -> bool:
+    """Whether ``kernels/decode_attention``'s kernel attends ``cache``: a
+    bf16 (not quantized) cache in plain CUDA tensors (not DTensors)."""
+    k = cache["k"]
+    return k.dtype == torch.bfloat16 and type(k) is torch.Tensor \
+        and k.device.type == "cuda"
+
+
 def attn_decode(params, x, cache, cfg, pos, *, window=None):
-    """One-token decode.  x: (B, 1, d); pos: (B,) int32 current position."""
+    """One-token decode.  x: (B, 1, d); pos: (B,) int32 current position.
+
+    A bf16 cache in plain CUDA tensors is attended by the decode
+    attention kernel, in place of widening and repeating it (counter
+    ``attn.decode_kernel``); any other cache by the reference's steps
+    (``attn.decode_plain``)."""
     b, s, d = x.shape
     assert s == 1
     positions = pos[:, None]
@@ -226,19 +241,26 @@ def attn_decode(params, x, cache, cfg, pos, *, window=None):
     slot = pos % cap                                      # ring buffer
     vals = _kv_values(cfg, k[:, 0], v[:, 0], pos)
     new_cache = {n: _set(t, slot, vals[n]) for n, t in cache.items()}
-    ck = _kv_read(new_cache, "k")
-    cv = _kv_read(new_cache, "v")
-    cp = new_cache["pos"]
-
     scale = cfg.hd ** -0.5
-    qh = shard(q.to(torch.float32) * scale, "batch", None, "model", None)
-    kh = _repeat_kv(ck, cfg.n_heads)
-    vh = _repeat_kv(cv, cfg.n_heads)
-    kh = shard(kh, "batch", None, "model", None)
-    vh = shard(vh, "batch", None, "model", None)
-    out = per_shard(functools.partial(_attend_cache, window=window),
-                    qh, kh, vh, cp, positions, out_like=qh).to(x.dtype)
-    y = torch.einsum("bshk,hkd->bsd", out, dq(params["wo"]))
+    if _decode_kernel_takes(new_cache):
+        trace.count("attn.decode_kernel")
+        out = dattn.decode_attention_cuda(
+            q[:, 0], new_cache["k"], new_cache["v"], new_cache["pos"],
+            pos.to(torch.int32), window=window, scale=scale)[:, None]
+    else:
+        trace.count("attn.decode_plain")
+        ck = _kv_read(new_cache, "k")
+        cv = _kv_read(new_cache, "v")
+        cp = new_cache["pos"]
+        qh = shard(q.to(torch.float32) * scale, "batch", None, "model",
+                   None)
+        kh = _repeat_kv(ck, cfg.n_heads)
+        vh = _repeat_kv(cv, cfg.n_heads)
+        kh = shard(kh, "batch", None, "model", None)
+        vh = shard(vh, "batch", None, "model", None)
+        out = per_shard(functools.partial(_attend_cache, window=window),
+                        qh, kh, vh, cp, positions, out_like=qh)
+    y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), dq(params["wo"]))
     return y, new_cache
 
 

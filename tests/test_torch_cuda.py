@@ -553,3 +553,176 @@ def test_mla_moe_layers_at_published_widths_against_reference(card):
     print("decode without mscale**2: decode median",
           fault[480:].median().item())
     assert fault[480:].median().item() > 0.1
+
+
+# ---------------------------------------------------------------------------
+# decode attention over the bf16 cache
+# ---------------------------------------------------------------------------
+import test_torch_decode_attention as tda  # noqa: E402
+
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+
+#: (B, H, KV, hd, cap, window): danube's decode shape in the chat cell,
+#: qwen2's group of 7, granite-20b's MQA, a smoke config's ring,
+#: recurrentgemma's windowed ring (hd 256, g 16)
+DECODE_SHAPES = {
+    "danube": (16, 32, 8, 80, 2048, 4096),
+    "qwen2": (4, 14, 2, 64, 1000, None),
+    "granite20b": (4, 48, 1, 128, 512, None),
+    "smoke": (4, 4, 2, 16, 32, 32),
+    "recurrentgemma": (2, 16, 1, 256, 256, 128),
+}
+
+
+def _decode_inputs(card, name, state):
+    shape = DECODE_SHAPES[name]
+    ins = tda._cache(np.random.default_rng(len(name)), shape, state)
+    return [t.to(card) for t in ins], shape[5]
+
+
+@pytest.mark.parametrize("state", tda.STATES)
+@pytest.mark.parametrize("name", sorted(DECODE_SHAPES))
+def test_decode_attention_kernel_matches_plain(card, name, state):
+    """The kernel against its plain version and ``attn_decode``'s widened
+    path (``_attend_cache``), within ``tda.TOL`` (float32 sum
+    order); the same bits from run to run; a float32 query the same bits
+    as its bf16 original."""
+    (q, k, v, pos, cur), window = _decode_inputs(card, name, state)
+    before = da.decode_attention_cuda.launches
+    got = da.decode_attention_cuda(q, k, v, pos, cur, window=window)
+    again = da.decode_attention_cuda(q, k, v, pos, cur, window=window)
+    got32 = da.decode_attention_cuda(q.float(), k, v, pos, cur,
+                                     window=window)
+    assert da.decode_attention_cuda.launches == before + 3
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.equal(got, again) and torch.equal(got, got32)
+    plain = da.decode_attention_torch(q, k, v, pos, cur, window=window)
+    torch.testing.assert_close(got, plain, **tda.TOL)
+    torch.testing.assert_close(
+        got, chip_smoke.decode_plain_path(q, k, v, pos, cur, window),
+        **tda.TOL)
+
+
+def test_decode_attention_kernel_reads_strided_cache_views(card):
+    """A layer of a stacked cache, every other head of a wider one, and a
+    cache whose dead chunks hold NaN: the kernel reads what the strides
+    say and never a chunk no lane can see."""
+    (q, k, v, pos, cur), window = _decode_inputs(card, "qwen2", "mixed")
+    want = da.decode_attention_cuda(q, k, v, pos, cur, window=window)
+    stacked = torch.zeros((3,) + k.shape[:2] + (2 * k.shape[2], k.shape[3]),
+                          dtype=k.dtype, device=card)
+    stacked[2, :, :, 1::2] = k
+    kview = stacked[2, :, :, 1::2]
+    assert not kview.is_contiguous()
+    got = da.decode_attention_cuda(q, kview, v, pos, cur, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    pos[:] = -1
+    cur[:] = torch.tensor([5, 70, 127, 3], dtype=torch.int32)
+    for i, c in enumerate(cur.tolist()):
+        pos[i, :c + 1] = torch.arange(c + 1)
+    clean = da.decode_attention_cuda(q, k, v, pos, cur)
+    k[:, 2 * da.CHUNK:] = float("nan")
+    v[:, 2 * da.CHUNK:] = float("nan")
+    got = da.decode_attention_cuda(q, k, v, pos, cur)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(card):
+    (q, k, v, pos, cur), _ = _decode_inputs(card, "smoke", "full")
+    with pytest.raises(TypeError, match="bf16 cache"):
+        da.decode_attention_cuda(q, k.float(), v.float(), pos, cur)
+    with pytest.raises(TypeError, match="float32 or bf16 query"):
+        da.decode_attention_cuda(q.half(), k, v, pos, cur)
+    with pytest.raises(ValueError, match="head widths"):
+        da.decode_attention_cuda(q[..., :12].contiguous(),
+                                 k[..., :12].contiguous(),
+                                 v[..., :12].contiguous(), pos, cur)
+    with pytest.raises(ValueError, match="layout"):
+        da.decode_attention_cuda(q[..., :8].contiguous(), k[..., 1:9],
+                                 v[..., 1:9], pos, cur)   # 2-byte offset
+    with pytest.raises(ValueError, match="layout"):
+        da.decode_attention_cuda(q, k.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), v, pos, cur)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_cuda(q.transpose(0, 1).contiguous()
+                                 .transpose(0, 1), k, v, pos, cur)
+    with pytest.raises(ValueError, match="one device"):
+        da.decode_attention_cuda(q, k, v, pos.cpu(), cur)
+
+
+def _smoke_lm(card, arch="h2o-danube-1.8b", **changes):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import init_numpy
+    from repro_torch.models.model import LM
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **changes)
+    return cfg, LM(cfg, device=card), init_numpy(cfg, 0, card)
+
+
+@pytest.mark.parametrize("kv_bits", [None, 8])
+def test_decode_step_on_card_counts_its_path(card, kv_bits):
+    """A decode step of smoke danube on the card: a bf16 cache runs the
+    kernel once a layer and counts ``attn.decode_kernel`` as often; an
+    int8 cache takes the plain path and counts ``attn.decode_plain``."""
+    from repro_torch import trace
+
+    cfg, model, params = _smoke_lm(card, kv_quant_bits=kv_bits)
+    tokens = torch.tensor([[3, 5, 7, 9], [2, 4, 6, 8]], dtype=torch.int32,
+                          device=card)
+    _, caches = model.prefill(params, tokens=tokens, capacity=16)
+    before = da.decode_attention_cuda.launches
+    trace.enable()
+    try:
+        model.decode_step(params, caches,
+                          tokens[:, :1], torch.full((2,), 4,
+                                                    dtype=torch.int32,
+                                                    device=card))
+        _, counters = trace.take()
+    finally:
+        trace.disable()
+    path = "attn.decode_plain" if kv_bits else "attn.decode_kernel"
+    assert counters.get(path) == cfg.n_layers
+    assert da.decode_attention_cuda.launches - before == (
+        0 if kv_bits else cfg.n_layers)
+
+
+def test_greedy_chat_on_card_matches_the_plain_decode(card, monkeypatch):
+    """Smoke danube served greedily in 4 slots (capacity 128 over a ring
+    of 32 slots under its window of 32, so the rings wrap): the tokens of
+    every request with the kernel equal those of today's path (the cache
+    widened and repeated), which the dispatch is told to take."""
+    from repro_torch import trace
+    from repro_torch.models import attention as mattn
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg, model, params = _smoke_lm(card)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in (5, 12, 30, 3, 17, 9)]
+
+    def serve():
+        eng = ServeEngine(model, params, batch_slots=4, capacity=128,
+                          device=card)
+        for i, p in enumerate(prompts):
+            eng.add(Request(rid=i, prompt=p, max_new=40))
+        return {r.rid: list(r.out) for r in eng.run()}
+
+    before = da.decode_attention_cuda.launches
+    trace.enable()
+    try:
+        got = serve()
+        _, counters = trace.take()
+    finally:
+        trace.disable()
+    launched = da.decode_attention_cuda.launches - before
+    assert launched == counters["attn.decode_kernel"] > 0
+    assert "attn.decode_plain" not in counters
+    monkeypatch.setattr(mattn, "_decode_kernel_takes", lambda cache: False)
+    want = serve()
+    assert da.decode_attention_cuda.launches - before == launched
+    assert got == want and all(len(t) == 40 for t in got.values())
