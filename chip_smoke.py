@@ -1421,9 +1421,8 @@ def phase_decode_attention(rng, seed=0, shape=DECODE_SHAPE,
     counted once a layer, nothing on the plain path, the two steps'
     logits within the chat cell's gap limit of each other, layer 0's
     ``attn_decode`` peak lower by at least one float32 head-repeated
-    copy of its K cache (the step's own peak is its caches' restack,
-    the same on both paths), and both steps' wall, host enqueue time,
-    host syncs and device kernels."""
+    copy of its K cache, and both steps' wall, allocator peak, host
+    enqueue time, host syncs and device kernels."""
     b, h, kv, hd, cap, window = shape
     dev = torch.device(dev)
     built = build.build_all(("decode_attention",))
@@ -1921,11 +1920,12 @@ SERVE_CPU_TOL = 0.05
 
 def replicated(caches, b):
     """A batch-1 model cache replicated over ``b`` slots: the batch dim is
-    1 under "unit" (stacked layers), 0 under "rest"."""
-    return {"unit": tree_map(lambda x: x.expand(
-        (x.shape[0], b) + x.shape[2:]).clone(), caches["unit"]),
-        "rest": tree_map(lambda x: x.expand((b,) + x.shape[1:]).clone(),
-                         caches["rest"])}
+    1 under "unit" (stacked layers), 0 under "lead" and "rest"."""
+    def rep(x, d):
+        return x.expand(x.shape[:d] + (b,) + x.shape[d + 1:]).clone()
+
+    return {k: tree_map(lambda x, d=int(k == "unit"): rep(x, d), v)
+            for k, v in caches.items()}
 
 
 def manual_greedy(model, params, prompt, max_new, slots, capacity,

@@ -3,8 +3,9 @@ online-softmax (memory-safe at long contexts) and ring-buffer KV caches.
 
 The counterpart of ``repro.models.attention``.  The reference's
 ``lax.scan`` over KV chunks is a loop over the same chunks in the same
-order, and its ``.at[...].set`` writes to a given cache are
-out-of-place copies: no function here mutates a cache it was given.
+order.  Its ``.at[...].set`` of a decode step's entry, which XLA may do
+in place in a jitted step, is an in-place write here: ``attn_decode``
+writes each lane's ring slot of the cache it is given.
 """
 
 from __future__ import annotations
@@ -207,14 +208,15 @@ def _kv_values(cfg, k, v, pos):
     return {"k": kq, "v": vq, "k_s": ks_, "v_s": vs_, "pos": pos}
 
 
-def _set(t, slot, val):
-    """``t.at[arange(B), slot].set(val)``: a copy of the ``(B, cap, ...)``
-    leaf ``t`` with each row's ``val`` written at its ring slot, as a
-    select, which keeps ``t``'s placements on a mesh (an indexed write
-    into a batch-sharded DTensor has no sharding strategy)."""
-    hit = torch.arange(t.shape[1], device=t.device) == slot[:, None]
-    hit = hit.reshape(hit.shape + (1,) * (t.ndim - 2))
-    return torch.where(hit, shard_like(val[:, None].to(t.dtype), t), t)
+def write_slot(t, slot, val):
+    """``t[arange(B), slot] = val`` in place: each lane's ``val`` written
+    at its ring slot of the ``(B, cap, ...)`` leaf ``t``.  On a mesh it is
+    written shard by shard (an indexed write into a batch-sharded DTensor
+    has no sharding strategy), the index and ``val`` placed like ``t``."""
+    val = shard_like(val[:, None].to(t.dtype), t)
+    idx = slot.reshape(slot.shape + (1,) * (t.ndim - 1)).expand(val.shape)
+    per_shard(lambda t, i, v: t.scatter_(1, i, v), t, shard_like(idx, t),
+              val, out_like=t)
 
 
 def _decode_kernel_takes(cache) -> bool:
@@ -227,6 +229,9 @@ def _decode_kernel_takes(cache) -> bool:
 
 def attn_decode(params, x, cache, cfg, pos, *, window=None):
     """One-token decode.  x: (B, 1, d); pos: (B,) int32 current position.
+    Writes each lane's key and value into ``cache`` at its ring slot
+    ``pos % cap`` (in place), then attends the cache; returns ``(y,
+    cache)``.
 
     A bf16 cache in plain CUDA tensors is attended by the decode
     attention kernel, in place of widening and repeating it (counter
@@ -240,18 +245,19 @@ def attn_decode(params, x, cache, cfg, pos, *, window=None):
     cap = cache["k"].shape[1]
     slot = pos % cap                                      # ring buffer
     vals = _kv_values(cfg, k[:, 0], v[:, 0], pos)
-    new_cache = {n: _set(t, slot, vals[n]) for n, t in cache.items()}
+    for n, t in cache.items():
+        write_slot(t, slot, vals[n])
     scale = cfg.hd ** -0.5
-    if _decode_kernel_takes(new_cache):
+    if _decode_kernel_takes(cache):
         trace.count("attn.decode_kernel")
         out = dattn.decode_attention_cuda(
-            q[:, 0], new_cache["k"], new_cache["v"], new_cache["pos"],
+            q[:, 0], cache["k"], cache["v"], cache["pos"],
             pos.to(torch.int32), window=window, scale=scale)[:, None]
     else:
         trace.count("attn.decode_plain")
-        ck = _kv_read(new_cache, "k")
-        cv = _kv_read(new_cache, "v")
-        cp = new_cache["pos"]
+        ck = _kv_read(cache, "k")
+        cv = _kv_read(cache, "v")
+        cp = cache["pos"]
         qh = shard(q.to(torch.float32) * scale, "batch", None, "model",
                    None)
         kh = _repeat_kv(ck, cfg.n_heads)
@@ -261,7 +267,7 @@ def attn_decode(params, x, cache, cfg, pos, *, window=None):
         out = per_shard(functools.partial(_attend_cache, window=window),
                         qh, kh, vh, cp, positions, out_like=qh)
     y = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), dq(params["wo"]))
-    return y, new_cache
+    return y, cache
 
 
 def _attend_cache(qh, kh, vh, cp, positions, *, window):

@@ -22,8 +22,8 @@ Two paths compute the same attention, the products grouped otherwise:
 The decode products read the bf16 cache as it is and accumulate in
 float32 (cuBLAS's float32 output on the card): the cache is never
 widened.  Spans: ``mla.latent`` (the projections, the norm, the rotation
-and the cache write) and ``mla.attend`` (scores, softmax, values and the
-output projection).
+and the in-place write of each lane's ring slot) and ``mla.attend``
+(scores, softmax, values and the output projection).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch
 
 from repro_torch import trace
 from . import common
-from .attention import NEG_INF, _set, chunked_attention, ring_cache
+from .attention import NEG_INF, chunked_attention, ring_cache, write_slot
 from .common import dense_init, rmsnorm, rope_pairs, yarn_inv_freq
 from .qweight import dq
 
@@ -131,24 +131,24 @@ def _bmm_f32(a, b):
 
 def mla_decode(params, x, cache, cfg, pos):
     """One-token decode through the latent cache.  x: (B, 1, d); pos:
-    (B,) int32.  Returns ``(y, new_cache)``; the given cache is not
-    mutated."""
+    (B,) int32.  Writes each lane's ``c``, ``k_pe`` and position into
+    ``cache`` at its ring slot (in place), then attends the cache;
+    returns ``(y, cache)``."""
     positions = pos[:, None]
     with trace.span("mla.latent"):
         q_nope, q_pe, c, k_pe = _latent(params, x, cfg, positions)
         slot = pos % cache["c"].shape[1]
-        new = {"c": _set(cache["c"], slot, c[:, 0]),
-               "k_pe": _set(cache["k_pe"], slot, k_pe[:, 0]),
-               "pos": _set(cache["pos"], slot, pos)}
+        for n, val in (("c", c[:, 0]), ("k_pe", k_pe[:, 0]), ("pos", pos)):
+            write_slot(cache[n], slot, val)
     with trace.span("mla.attend"):
         q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], dq(params["w_uk"]))
-        s = _bmm_f32(q_lat, new["c"].transpose(1, 2)) \
-            + _bmm_f32(q_pe[:, 0], new["k_pe"].transpose(1, 2))
-        cp = new["pos"]
+        s = _bmm_f32(q_lat, cache["c"].transpose(1, 2)) \
+            + _bmm_f32(q_pe[:, 0], cache["k_pe"].transpose(1, 2))
+        cp = cache["pos"]
         valid = (cp >= 0) & (cp <= positions)
         s = torch.where(valid[:, None, :], s * softmax_scale(cfg), NEG_INF)
         p = torch.softmax(s, dim=-1)
-        o_lat = _bmm_f32(p.to(new["c"].dtype), new["c"])      # (B, H, r)
+        o_lat = _bmm_f32(p.to(cache["c"].dtype), cache["c"])  # (B, H, r)
         o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), dq(params["w_uv"]))
         y = torch.einsum("bhk,hkd->bd", o, dq(params["wo"]))[:, None]
-    return y, new
+    return y, cache

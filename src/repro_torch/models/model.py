@@ -11,7 +11,11 @@ under ``"mla"`` in place of ``"kv"``.  Three execution modes:
 
 * ``apply``       -- full-sequence forward (training, encoder)
 * ``prefill``     -- full-sequence forward that also emits decode caches
-* ``decode_step`` -- one token with ring-buffer KV / recurrent state
+* ``decode_step`` -- one token with ring-buffer KV / recurrent state,
+  written in place into the caches it is given: each attention layer
+  writes each lane's ring slot, each recurrent layer its new state, all
+  through the views of the stacked caches that the layer loop hands out
+  (nothing is restacked), so the caches keep their addresses
 
 ``LM(cfg, device=None)`` runs on ``device`` (``None``: the GPU; it raises
 when there is none).  When autograd records a ``"train"`` forward, each
@@ -37,7 +41,8 @@ from repro_torch.core.engine import resolve_device
 from . import attention as attn
 from . import common, mla as mla_mod, moe as moe_mod, rglru as rg
 from . import ssm as ssm_mod
-from .common import dense_init, mlp_apply, rmsnorm, shard
+from .common import (dense_init, mlp_apply, per_shard, rmsnorm, shard,
+                     shard_like)
 from .qweight import dq, tree_leaves, tree_map
 
 
@@ -112,12 +117,23 @@ def _ffn(params, cfg, x, mode="train", layer=0):
     return None, 0.0
 
 
+def _write_state(cache, new):
+    """A recurrent layer's new state ``new`` copied into its decode cache
+    ``cache`` leaf by leaf (in place, shard by shard on a mesh); returns
+    ``cache``."""
+    for n, t in cache.items():
+        per_shard(lambda t, v: t.copy_(v), t, shard_like(new[n], t),
+                  out_like=t)
+    return cache
+
+
 def _block_apply(params, h, cfg, btype, positions, mode, cache,
                  enc_out=None, enc_pos=None, causal=True, layer=0):
-    """Returns (h, new_cache, aux).  An attention block records the
-    spans ``model.attention`` (its norm, attention, KV write and
-    residual) and ``model.mlp`` (norm, FFN and residual).  ``layer``
-    is the layer's index in the model (the MoE's device counters)."""
+    """Returns (h, new_cache, aux).  In decode the new cache is ``cache``,
+    written in place.  An attention block records the spans
+    ``model.attention`` (its norm, attention, KV write and residual) and
+    ``model.mlp`` (norm, FFN and residual).  ``layer`` is the layer's
+    index in the model (the MoE's device counters)."""
     new_cache = {}
     aux = 0.0
 
@@ -171,6 +187,8 @@ def _block_apply(params, h, cfg, btype, positions, mode, cache,
         y, c = ssm_mod.ssm_apply(
             params["ssm"], x, cfg,
             cache=cache["ssm"] if mode == "decode" else None)
+        if mode == "decode":
+            c = _write_state(cache["ssm"], c)
         if mode != "train":
             new_cache["ssm"] = c
         h = h + y
@@ -179,6 +197,8 @@ def _block_apply(params, h, cfg, btype, positions, mode, cache,
         y, c = rg.rglru_apply(
             params["rec"], x, cfg,
             cache=cache["rec"] if mode == "decode" else None)
+        if mode == "decode":
+            c = _write_state(cache["rec"], c)
         if mode != "train":
             new_cache["rec"] = c
         h = h + y
@@ -405,7 +425,8 @@ class LM:
                   first=0):
         """``remat``: the policy of a training forward (``None``: the
         config's ``remat_policy``); ``first``: the model's index of the
-        unit's first layer."""
+        unit's first layer.  A decode writes each layer's caches through
+        their views ``_layer(caches, i)`` and returns ``caches``."""
         cfg = self.cfg
         unit = unit or self.unit
         remat = remat or cfg.remat_policy
@@ -428,6 +449,8 @@ class LM:
             h, new_lc, a = body(lp, h, _layer(caches, layer), layer)
             new_caches.append(new_lc)
             aux = aux + a
+        if mode == "decode":
+            return h, caches, aux
         return h, _stack(new_caches), aux
 
     def _embed(self, params, tokens=None, embeds=None):
@@ -491,7 +514,9 @@ class LM:
         with trace.span("model.head"):
             logits = self._head(params, h)
         new_caches = None
-        if mode != "train":
+        if mode == "decode":
+            new_caches = caches                 # written in place
+        elif mode == "prefill":
             new_caches = {"unit": new_unit_caches, "rest": new_rest}
             if self.lead:
                 new_caches["lead"] = new_lead
@@ -543,7 +568,8 @@ class LM:
 
     def decode_step(self, params, caches, tokens, pos,
                     enc_out=None, enc_pos=None):
-        """tokens: (B, 1); pos: (B,) int32."""
+        """tokens: (B, 1); pos: (B,) int32.  Writes the step's entries into
+        ``caches`` in place and returns ``(logits, caches)``."""
         positions = pos[:, None]
         logits, new_caches, _ = self._forward(
             params, tokens, None, positions, "decode", caches,

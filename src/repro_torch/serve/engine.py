@@ -181,6 +181,9 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.pos = np.zeros((batch_slots,), np.int32)
         self.tokens = np.zeros((batch_slots, 1), np.int32)
+        # the decode caches, owned by the engine and never rebound: a
+        # prefill's cache is merged into its lane, and a decode step
+        # writes each lane's new entry, in place
         self.caches = model.init_cache(batch_slots, capacity)
         self._decode = model.decode_step
         self._prefill_one = (
@@ -324,10 +327,9 @@ class ServeEngine:
         logits, cache = self._prefill_one(
             self.params, self._tensor(padded)[None, :])
 
-        # merge this request's cache into slot i: the batch dim is
-        # dim 1 for stacked-layer ("unit") caches, dim 0 for
-        # unstacked ("rest") layer caches.  The engine owns
-        # self.caches, so the merge writes into it in place.
+        # merge this request's cache into slot i, in place: the batch
+        # dim is dim 1 for stacked-layer ("unit") caches, dim 0 for
+        # unstacked ("rest") layer caches
         def merge(full, one, bdim):
             if isinstance(full, dict):
                 for k in full:
@@ -479,7 +481,7 @@ class ServeEngine:
                     self._observe_guarded(
                         x.to(torch.float32).cpu().numpy()[:, 0, :])
             with trace.span("serve.decode"):
-                logits, self.caches = self._decode(
+                logits, _ = self._decode(
                     self.params, self.caches, self._tensor(self.tokens),
                     self._tensor(self.pos))
                 with trace.span("serve.sample"):

@@ -337,8 +337,9 @@ def test_attn_decode_kernel_branch_equals_the_plain_path(arch,
     window = cfg.sliding_window
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(attn, "_decode_kernel_takes", lambda cache: False)
-        want_y, want_c = attn.attn_decode(p, xs, cache, cfg, pos,
-                                          window=window)
+        want_y, want_c = attn.attn_decode(
+            p, xs, {n: t.clone() for n, t in cache.items()}, cfg, pos,
+            window=window)
     assert not kernel_on_the_cpu
     trace.enable()
     try:
@@ -350,6 +351,7 @@ def test_attn_decode_kernel_branch_equals_the_plain_path(arch,
     assert counters.get("attn.decode_kernel") == 1
     assert "attn.decode_plain" not in counters
     assert q.dtype == torch.bfloat16 and q.shape == (3, cfg.n_heads, cfg.hd)
+    assert new is cache
     assert k is new["k"] and v is new["v"] and cp is new["pos"]
     assert torch.equal(cur, pos) and w == window and scale == cfg.hd ** -0.5
     for n in want_c:

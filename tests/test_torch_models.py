@@ -243,7 +243,8 @@ def test_prefill_kv_cache_and_attn_decode_match_reference(kv_bits):
     """Prefill a 6-token cache of capacity 8, then decode two tokens,
     one wrapping the ring for a window of 7: every cache leaf
     bit-identical, the decoded outputs within 0.05 (bf16 outputs, the
-    models' bound).  The input cache is not modified."""
+    models' bound).  The decode writes the given cache in place and
+    returns it."""
     rcfg, cfg, p = _attn_setup(kv_bits)
     rng = np.random.default_rng(7)
     x = _bf16(rng, (2, 6, rcfg.d_model))
@@ -260,16 +261,113 @@ def test_prefill_kv_cache_and_attn_decode_match_reference(kv_bits):
         pos = jnp.full((2,), step, jnp.int32)
         y, want = run_ref(lambda p, x, c, q: ja.attn_decode(
             p, x, c, rcfg, q, window=window), p, xs, want, pos)
-        before = {n: t.clone() for n, t in got.items()}
+        leaves = dict(got)
         ty, new = ta.attn_decode(tp, to_torch(xs), got, cfg, to_torch(pos),
                                  window=window)
+        assert new is got
         for n in got:
-            assert torch.equal(got[n], before[n]), "input cache modified"
+            assert new[n] is leaves[n], "cache leaf rebuilt"
             _same_bits(new[n], want[n])
         np.testing.assert_allclose(ty.float().numpy(),
                                    np.asarray(y, np.float32),
                                    rtol=0.05, atol=0.05)
         got = new
+
+
+def _select_write(t, slot, val):
+    """The select that wrote a decode step's slot before the in-place
+    write: ``t.at[arange(B), slot].set(val)`` as a whole-cache
+    ``torch.where``, copied back into ``t``."""
+    hit = torch.arange(t.shape[1]) == slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (t.ndim - 2))
+    t.copy_(torch.where(hit, val[:, None].to(t.dtype), t))
+
+
+def _recurrent_states(model, caches):
+    """The recurrent layers' states in ``caches``, in layer order."""
+    out = []
+    for i in range(model.n_units):
+        for k, t in enumerate(model.unit):
+            if t in ("ssm", "rec"):
+                out.append({n: x[i] for n, x in
+                            caches["unit"][f"b{k}"][t].items()})
+    out += [c[t] for c, t in zip(caches["rest"], model.rest)
+            if t in ("ssm", "rec")]
+    return out
+
+
+@pytest.mark.parametrize("arch,kv_bits", [
+    ("h2o-danube-1.8b", None), ("deepseek-v2-lite", None),
+    ("qwen2-0.5b", 8), ("recurrentgemma-9b", None)])
+def test_decode_step_writes_each_lane_slot_in_place(arch, kv_bits,
+                                                    monkeypatch):
+    """After a prefill of 6 tokens into 8 slots, one decode step with the
+    lanes at positions 6, 7 and 11 (the last wrapped around the ring)
+    returns the caches it was given, leaf for leaf the same tensors, and
+    restacks none.  An attention leaf changes only at each lane's
+    ``pos % cap``, where it holds what the whole-cache select wrote; a
+    recurrent layer's state is the one its layer returns; the logits are
+    bit for bit those of the decode through the select."""
+    import dataclasses
+    from repro_torch.models import mla as tmla
+    from repro_torch.models import model as tmodel
+
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              kv_quant_bits=kv_bits)
+    model = LM(cfg, device="cpu")
+    params = init_numpy(cfg, 0, device="cpu")
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (3, 7)).astype(np.int32))
+    pos = torch.tensor([6, 7, 11], dtype=torch.int32)
+    _, caches = model.prefill(params, tokens=tokens[:, :6], capacity=8)
+    before = tq.tree_map(torch.clone, caches)
+    given = list(_with_paths(caches))
+
+    def restack(trees):
+        raise AssertionError("a decode step restacked its caches")
+
+    monkeypatch.setattr(tmodel, "_stack", restack)
+    logits, got = model.decode_step(params, caches, tokens[:, 6:], pos)
+    assert got is caches
+    assert all(t is g for (_, t), (_, g) in zip(_with_paths(got), given))
+
+    # the same step with the select in place of each slot write and the
+    # recurrent states taken as their layers return them
+    states = []
+
+    def functional(cache, new):
+        states.append(new)
+        return new
+
+    monkeypatch.setattr(ta, "write_slot", _select_write)
+    monkeypatch.setattr(tmla, "write_slot", _select_write)
+    monkeypatch.setattr(tmodel, "_write_state", functional)
+    oracle = tq.tree_map(torch.clone, before)
+    want, _ = model.decode_step(params, oracle, tokens[:, 6:], pos)
+    assert torch.equal(logits, want)
+
+    attention = 0
+    for (path, t), (_, old), (_, sel) in zip(
+            _with_paths(got), _with_paths(before), _with_paths(oracle)):
+        if "['kv']" not in path and "['mla']" not in path:
+            continue
+        attention += 1
+        lanes = (slice(None),) if path.startswith("['unit']") else ()
+        slots = lanes + (torch.arange(3), pos % t.shape[len(lanes) + 1])
+        kept = t.clone()
+        kept[slots] = old[slots]
+        assert torch.equal(kept, old), f"{path}: written off its slots"
+        assert torch.equal(t, sel), f"{path}: not the select's write"
+        if path.endswith("['pos']"):
+            assert torch.equal(t[slots], pos.expand(t[slots].shape)), path
+    assert attention > 0
+    recurrent = _recurrent_states(model, got)
+    assert len(recurrent) == len(states)
+    for mine, theirs in zip(recurrent, states):
+        assert mine.keys() == theirs.keys()
+        for n in mine:
+            assert torch.equal(mine[n], theirs[n]), n
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from repro_torch.core.faults import FaultModel  # noqa: E402
 from repro_torch.kernels import bitplane_ops as bp  # noqa: E402
 from repro_torch.models.convert import init_numpy  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.models.qweight import tree_leaves  # noqa: E402
 from repro_torch.pim.fabric import FabricConfig, FabricLinearProbe  # noqa
 from repro_torch.serve.engine import Request, ServeEngine, _bucket  # noqa
 from repro_torch.serve.kv import PagedKV  # noqa: E402
@@ -617,6 +618,36 @@ def test_serve_engine_continuous_batching():
     for r in done:
         assert r.out == chip_smoke.manual_greedy(model, params, prompts[r.rid], 4, 2,
                                        32, 4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b",
+                                  "deepseek-v2-lite"])
+def test_serve_engine_keeps_its_caches_in_place(arch):
+    """The continuous-batching case above (two slots, five requests)
+    step by step: the engine's caches stay the same object and every
+    leaf at the same address from its first step to its last, and each
+    chain equals the manual greedy decode."""
+    model, params = _lm(arch, 5)
+    eng = ServeEngine(model, params, batch_slots=2, capacity=32,
+                      device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.cfg.vocab, 4).astype(np.int32)
+               for _ in range(5)]
+    for rid, p in enumerate(prompts):
+        eng.add(Request(rid=rid, prompt=p, max_new=4))
+    caches = eng.caches
+    ptrs = [t.data_ptr() for t in tree_leaves(caches)]
+    done, steps = [], 0
+    while eng.queue or any(s is not None for s in eng.slots):
+        done += eng.step()
+        steps += 1
+        assert eng.caches is caches
+        assert [t.data_ptr() for t in tree_leaves(caches)] == ptrs, steps
+    assert steps > 4 and sorted(r.rid for r in done) == [0, 1, 2, 3, 4]
+    bucket = 4 if model.prefill_pad_safe else None
+    for r in done:
+        assert r.out == chip_smoke.manual_greedy(
+            model, params, prompts[r.rid], 4, 2, 32, bucket)
 
 
 # ---------------------------------------------------------------------------

@@ -127,13 +127,14 @@ def check_arch(arch, bits=None, kv_bits=None):
     got_full, aux = model.apply(params, tokens=t, **kw)
     got_pre, got_caches = model.prefill(params, tokens=t[:, :S],
                                         capacity=S + 1, **kw)
+    # before the decode step, which writes the prefill's caches in place
+    _caches_close(got_caches, caches)
     got_step, _ = model.decode_step(params, got_caches, t[:, S:],
                                     torch.from_numpy(pos), **kw)
 
     assert got_full.shape == (B, S + 1, cfg.vocab)
     _close(got_full, full, "apply logits")
     _close(got_pre, pre, "prefill logits")
-    _caches_close(got_caches, caches)
     _close(got_step, step, "decode_step logits")
     if not kv_bits:
         # the port's own decode against its full forward, at the same
