@@ -1405,6 +1405,60 @@ def decode_step_reading(model, params, caches, tokens, pos, plain):
                     else None, "profile": prof}
 
 
+def decode_graph_reading(model, params, caches, tokens, pos, want):
+    """The same decode step through a ``ServeEngine``'s CUDA graph, the
+    engine's caches a copy of ``caches``: the capturing call's allocator
+    peak above what was allocated before it (the eager step and the
+    capture), the bytes the graph's private pool reserved and those its
+    static outputs hold; over 20 replays after the first, the
+    median wall (CUDA events) and the host's time to copy ``tokens`` and
+    ``pos`` in and launch; the first replay's wall; a profile of one
+    replay and the ``decode_attention_chunk`` kernels it ran (a replay
+    runs no Python, so ``decode_attention_cuda.launches`` does not count
+    it: the trace does); whether the capturing call's and every replay's
+    logits equal ``want`` bit for bit; the engine's counts of replays
+    and eager steps."""
+    eng = ServeEngine(model, params, batch_slots=tokens.shape[0],
+                      capacity=caches["unit"]["b0"]["kv"]["k"].shape[2],
+                      device=tokens.device)
+    for mine, theirs in zip(tree_leaves(eng.caches), tree_leaves(caches)):
+        mine.copy_(theirs)
+    with torch.no_grad():
+        def step():
+            return eng._decode(params, eng.caches, tokens, pos)[0]
+
+        first, peak = peak_above_base(step)
+        pool = [seg for seg in torch.cuda.memory_snapshot()
+                if tuple(seg["segment_pool_id"])
+                == tuple(eng._decode.graph.pool())]
+        same = torch.equal(first, want)
+        walls, host = [], []
+        for _ in range(21):
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            torch.cuda.synchronize()
+            e0.record()
+            t0 = time.perf_counter()
+            logits = step()
+            host.append((time.perf_counter() - t0) * 1e3)
+            e1.record()
+            torch.cuda.synchronize()
+            walls.append(e0.elapsed_time(e1))
+            same = same and torch.equal(logits, want)
+        prof = device_profile(step, count=("decode_attention_chunk",))
+    return {"bit_identical": bool(same),
+            "capture_peak_above_base_bytes": peak,
+            "pool_reserved_bytes": sum(seg["total_size"] for seg in pool),
+            "pool_allocated_bytes": sum(seg["allocated_size"]
+                                        for seg in pool),
+            "first_replay_ms": walls[0],
+            "replay_ms": sorted(walls[1:])[10],
+            "copy_in_and_launch_ms": sorted(host[1:])[10],
+            "launches": prof["kernels_named"]["decode_attention_chunk"],
+            "replays": eng.stats["decode_graph_replays"],
+            "eager": eng.stats["decode_eager"], "profile": prof}
+
+
 def phase_decode_attention(rng, seed=0, shape=DECODE_SHAPE,
                            live=DECODE_LIVE, step_lens=DECODE_STEP_LENS,
                            cfg=None, dev="cuda"):
@@ -1422,7 +1476,10 @@ def phase_decode_attention(rng, seed=0, shape=DECODE_SHAPE,
     logits within the chat cell's gap limit of each other, layer 0's
     ``attn_decode`` peak lower by at least one float32 head-repeated
     copy of its K cache, and both steps' wall, allocator peak, host
-    enqueue time, host syncs and device kernels."""
+    enqueue time, host syncs and device kernels; then the kernel's step
+    through a ``ServeEngine``'s CUDA graph (``decode_graph_reading``),
+    its logits the eager step's bit for bit and one replay running the
+    kernel once a layer."""
     b, h, kv, hd, cap, window = shape
     dev = torch.device(dev)
     built = build.build_all(("decode_attention",))
@@ -1495,20 +1552,25 @@ def phase_decode_attention(rng, seed=0, shape=DECODE_SHAPE,
                                                 tokens, lens, False)
     logits_p, with_plain = decode_step_reading(model, params, caches,
                                                tokens, lens, True)
+    graph = decode_graph_reading(model, params, caches, tokens, lens,
+                                 logits_k)
     layers = cfg.n_layers
     # one layer's K cache widened to float32 and repeated to H heads
     repeated = layer_kv["k"][0].numel() * 4 * (cfg.n_heads // cfg.n_kv_heads)
     gap = (logits_k.float() - logits_p.float()).abs().max().item()
     step = {"lanes": b, "capacity": cap, "live": list(step_lens),
             "layers": layers, "kernel": with_kernel, "plain": with_plain,
-            "logit_gap": gap, "repeated_copy_bytes": repeated,
+            "graph": graph, "logit_gap": gap,
+            "repeated_copy_bytes": repeated,
             "peak_saved_bytes": with_plain["attn_decode_peak_bytes"]
             - with_kernel["attn_decode_peak_bytes"]}
     if with_kernel["launches"] != layers \
             or with_kernel["counters"] != {"attn.decode_kernel": layers} \
             or with_plain["launches"] != 0 \
             or with_plain["counters"] != {"attn.decode_plain": layers} \
-            or step["peak_saved_bytes"] < repeated or gap > 0.25:
+            or step["peak_saved_bytes"] < repeated or gap > 0.25 \
+            or not graph["bit_identical"] or graph["replays"] != 22 \
+            or graph["eager"] != 1 or graph["launches"] != layers:
         raise AssertionError(f"danube decode step: {step}")
     out = {"shape": list(shape), "cases": cases, "step": step,
            "built": {k: v["seconds"] for k, v in built.items()},
@@ -1518,9 +1580,10 @@ def phase_decode_attention(rng, seed=0, shape=DECODE_SHAPE,
     return out
 
 
-def device_profile(run):
+def device_profile(run, count=()):
     """Wall and device busy time of one ``run()`` under torch.profiler:
-    the busy share says how far the host holds the card back."""
+    the busy share says how far the host holds the card back; for each
+    name in ``count``, the device kernels whose names hold it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1537,6 +1600,8 @@ def device_profile(run):
             "device_kernels": sum(e[1] for e in ev),
             "lane_fold_ms": sum(e[0] for e in ev if "lane_fold" in e[2])
             / 1e3,
+            "kernels_named": {k: sum(c for _, c, n in ev if k in n)
+                              for k in count},
             "top_kernels": [{"name": n[:80], "count": c, "ms": us / 1e3}
                             for us, c, n in ev[:6]]}
 
@@ -2112,7 +2177,8 @@ def phase_serve(seed, dev=None, cfg=None, fabric_cfg=None,
           "cpu_check": cpu_check,
           "engine_stats": {k: st[k] for k in (
               "steps", "prefill_compiles", "stream_prefill_tokens",
-              "prefill_tokens", "decode_tokens", "decode_warm_steps")},
+              "prefill_tokens", "decode_tokens", "decode_warm_steps",
+              "decode_graph_replays", "decode_eager")},
           "prefill_ms_per_bucket": per_bucket,
           "decode_step_ms": {"median": step_ms,
                              "runs": [x * 1e3 for x in steps]},
@@ -3013,7 +3079,8 @@ def main():
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
         "replaces": None, "launches": step["kernel"]["launches"],
-        "launches_by_path": {"danube_decode_step": step["kernel"]["launches"]},
+        "launches_by_path": {"danube_decode_step": step["kernel"]["launches"],
+                             "danube_decode_graph": step["graph"]["launches"]},
         "shape": decode["shape"],
         "by_live": [{k: c[k] for k in (
             "live", "max_abs_err", "ms", "plain_event_ms", "widened_ms",

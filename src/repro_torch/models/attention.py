@@ -219,12 +219,16 @@ def write_slot(t, slot, val):
               val, out_like=t)
 
 
+def _plain_cuda(t) -> bool:
+    """A plain CUDA tensor (not a DTensor, not on the host)."""
+    return type(t) is torch.Tensor and t.device.type == "cuda"
+
+
 def _decode_kernel_takes(cache) -> bool:
     """Whether ``kernels/decode_attention``'s kernel attends ``cache``: a
     bf16 (not quantized) cache in plain CUDA tensors (not DTensors)."""
     k = cache["k"]
-    return k.dtype == torch.bfloat16 and type(k) is torch.Tensor \
-        and k.device.type == "cuda"
+    return k.dtype == torch.bfloat16 and _plain_cuda(k)
 
 
 def attn_decode(params, x, cache, cfg, pos, *, window=None):

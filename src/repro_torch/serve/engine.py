@@ -4,10 +4,13 @@ chunked prefill, preemption, and per-request latency accounting.
 The counterpart of ``repro.serve.engine``.  The engine decodes a fixed
 batch of ``batch_slots`` lanes through ONE ``decode_step`` and keeps
 those lanes full from a queue (continuous batching), on ``device``
-(``None``: the GPU).  The reference's ``jax.jit`` of ``decode_step`` and
-of the prefill are direct calls here; ``stats["prefill_compiles"]``
-still counts the distinct prefill shapes (buckets).  The loop rests on
-three serving subsystems:
+(``None``: the GPU).  The reference's ``jax.jit`` of the prefill is a
+direct call here; ``stats["prefill_compiles"]`` still counts the
+distinct prefill shapes (buckets).  Its ``jax.jit`` of ``decode_step``
+is, on a GQA stack with dense FFNs in plain bf16 CUDA tensors, one CUDA
+graph captured at the engine's first decode step and replayed at every
+later one (:class:`_DecodeGraph`); any other stack decodes eagerly.
+The loop rests on three serving subsystems:
 
 * :class:`repro_torch.serve.kv.PagedKV` -- a fixed-size-page KV pool with
   per-request page tables.  Admission is capacity-aware (a prompt that
@@ -72,6 +75,9 @@ import torch
 from repro_torch import trace
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.faults import FabricFaultError
+from repro_torch.models import attention
+from repro_torch.models.model import LM, _is_mla
+from repro_torch.models.qweight import tree_leaves
 
 from .kv import PagedKV
 from .scheduler import Scheduler, SchedulerConfig
@@ -140,6 +146,101 @@ def _sample_seed(seed: int, step: int) -> int:
         1, np.uint64)[0])
 
 
+def _decode_graph_takes(model, params, caches) -> bool:
+    """Whether ``model``'s decode step over ``params`` and ``caches`` may
+    be replayed as one CUDA graph: an :class:`LM` whose every decode
+    layer is a GQA attention block (no latent attention, no cross
+    attention, no recurrent state) with a dense FFN (no experts), whose
+    every KV cache the decode kernel attends
+    (``attention._decode_kernel_takes``: bf16 in plain CUDA tensors; a
+    quantized cache builds a host scalar each step, which a capture
+    cannot take) and whose every parameter is a floating-point plain
+    CUDA tensor (a quantized weight's codes are integers).  Every other
+    stack decodes eagerly."""
+    if not isinstance(model, LM) or _is_mla(model.cfg) \
+            or set((*model.lead, *model.unit, *model.rest)) != {"attn"}:
+        return False
+    blocks = (*params.get("lead", ()), *params["unit"].values(),
+              *params.get("rest", ()))
+    layers = (*caches.get("lead", ()), *caches["unit"].values(),
+              *caches["rest"])
+    return all("moe" not in b for b in blocks) \
+        and all(attention._decode_kernel_takes(c["kv"]) for c in layers) \
+        and all(t.is_floating_point() and attention._plain_cuda(t)
+                for t in tree_leaves(params))
+
+
+class _DecodeGraph:
+    """The engine's decode step, ``(params, caches, tokens, pos) ->
+    (logits, caches)``, replayed as one CUDA graph where the stack
+    allows it.
+
+    The first call with the engine's own ``params`` and ``caches`` (by
+    identity), on a stack that :func:`_decode_graph_takes` admitted when
+    the engine was built, runs
+    ``model.decode_step`` eagerly on a side stream, from static copies of
+    ``tokens`` and ``pos`` on the card, and returns its result; then it
+    captures the step from those buffers into one graph under
+    ``torch.no_grad()`` (a capture executes nothing, so the caches are
+    written once).  Each later call with the engine's own ``params`` and
+    ``caches`` and the captured shapes and dtypes copies ``tokens`` and
+    ``pos`` into the buffers and replays the graph: the eager step's
+    kernels over the same weights and caches at the same addresses.  It
+    returns the graph's static logits, which the next replay overwrites,
+    and ``caches``.  Every other call runs the step eagerly.
+
+    Each replay counts ``serve.decode_graph`` and
+    ``stats["decode_graph_replays"]``, each eager call (the capturing one
+    too) ``serve.decode_eager`` and ``stats["decode_eager"]``.  The
+    model's spans and counters are recorded once, at capture, and not
+    per replay."""
+
+    def __init__(self, model, params, caches, stats):
+        self.model, self.params, self.caches = model, params, caches
+        self.stats = stats
+        self.takes = _decode_graph_takes(model, params, caches)
+        self.graph = self.tokens = self.pos = self.logits = None
+
+    def __call__(self, params, caches, tokens, pos):
+        own = params is self.params and caches is self.caches
+        if own and self.graph is not None \
+                and tokens.shape == self.tokens.shape \
+                and tokens.dtype == self.tokens.dtype \
+                and pos.shape == self.pos.shape \
+                and pos.dtype == self.pos.dtype:
+            self.tokens.copy_(tokens)
+            self.pos.copy_(pos)
+            self.graph.replay()
+            trace.count("serve.decode_graph")
+            self.stats["decode_graph_replays"] += 1
+            return self.logits, caches
+        trace.count("serve.decode_eager")
+        self.stats["decode_eager"] += 1
+        if own and self.takes and self.graph is None:
+            return self._capture(tokens, pos)
+        return self.model.decode_step(params, caches, tokens, pos)
+
+    def _capture(self, tokens, pos):
+        """The eager step, returned, and the graph of the same step."""
+        model, params, caches = self.model, self.params, self.caches
+        dev = params["embed"].device
+        tokens, pos = tokens.to(dev, copy=True), pos.to(dev, copy=True)
+        with torch.cuda.device(dev), torch.no_grad():
+            # PyTorch's pattern: warm up on a side stream, then capture
+            main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                logits, _ = model.decode_step(params, caches, tokens, pos)
+            main.wait_stream(side)
+            logits.record_stream(main)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static, _ = model.decode_step(params, caches, tokens, pos)
+        self.graph, self.tokens, self.pos, self.logits = (graph, tokens,
+                                                          pos, static)
+        return logits, caches
+
+
 class ServeEngine:
     """Paged continuous-batching decode over fixed shapes.
 
@@ -185,7 +286,6 @@ class ServeEngine:
         # prefill's cache is merged into its lane, and a decode step
         # writes each lane's new entry, in place
         self.caches = model.init_cache(batch_slots, capacity)
-        self._decode = model.decode_step
         self._prefill_one = (
             lambda p, t: model.prefill(p, tokens=t, capacity=capacity))
         # paged KV pool: default exactly covers the dense per-slot
@@ -231,7 +331,11 @@ class ServeEngine:
                       # phases' times are the spans serve.prefill and
                       # serve.decode: repro_torch.trace)
                       "prefill_tokens": 0, "decode_tokens": 0,
-                      "decode_warm_steps": 0}
+                      "decode_warm_steps": 0,
+                      # decode steps by path (_DecodeGraph)
+                      "decode_graph_replays": 0, "decode_eager": 0}
+        # every decode step passes through this one callable
+        self._decode = _DecodeGraph(model, params, self.caches, self.stats)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         """A host int array as a tensor on the engine's device (a copy:

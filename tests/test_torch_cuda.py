@@ -695,7 +695,11 @@ def test_greedy_chat_on_card_matches_the_plain_decode(card, monkeypatch):
     """Smoke danube served greedily in 4 slots (capacity 128 over a ring
     of 32 slots under its window of 32, so the rings wrap): the tokens of
     every request with the kernel equal those of today's path (the cache
-    widened and repeated), which the dispatch is told to take."""
+    widened and repeated), which the dispatch is told to take.  The
+    kernel's step is replayed as the engine's CUDA graph, which runs no
+    Python: the wrapper's count and ``attn.decode_kernel`` see the
+    capturing call's eager step and its capture, a layer each, and no
+    replay."""
     from repro_torch import trace
     from repro_torch.models import attention as mattn
     from repro_torch.serve.engine import Request, ServeEngine
@@ -720,9 +724,151 @@ def test_greedy_chat_on_card_matches_the_plain_decode(card, monkeypatch):
     finally:
         trace.disable()
     launched = da.decode_attention_cuda.launches - before
-    assert launched == counters["attn.decode_kernel"] > 0
+    assert launched == counters["attn.decode_kernel"] == 2 * cfg.n_layers
+    assert counters["serve.decode_graph"] > 0
     assert "attn.decode_plain" not in counters
     monkeypatch.setattr(mattn, "_decode_kernel_takes", lambda cache: False)
     want = serve()
     assert da.decode_attention_cuda.launches - before == launched
     assert got == want and all(len(t) == 40 for t in got.values())
+
+
+# ---------------------------------------------------------------------------
+# The serve engine's decode step as one CUDA graph (serve/engine.py)
+# ---------------------------------------------------------------------------
+def _recorded_engine(model, params, **kw):
+    """A ``ServeEngine`` whose decode steps' logits are kept (cloned
+    before the next replay overwrites them)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(model, params, **kw)
+    eng.holder, eng.logits = eng._decode, []
+
+    def recorded(*args):
+        logits, caches = eng.holder(*args)
+        eng.logits.append(logits.clone())
+        return logits, caches
+
+    eng._decode = recorded
+    return eng
+
+
+def _chat(model, params, prompts, monkeypatch, max_new=40, graphed=True,
+          **kw):
+    """Serve ``prompts`` in 4 slots of capacity 128; with ``graphed``
+    false, ``_decode_graph_takes`` is told to refuse every stack.  Returns
+    the engine and the chains by request."""
+    from repro_torch.serve import engine as se
+    from repro_torch.serve.engine import Request
+
+    with monkeypatch.context() as m:
+        if not graphed:
+            m.setattr(se, "_decode_graph_takes", lambda *a: False)
+        eng = _recorded_engine(model, params, batch_slots=4, capacity=128,
+                               device=params["embed"].device, **kw)
+        for i, p in enumerate(prompts):
+            eng.add(Request(rid=i, prompt=p, max_new=max_new))
+        chains = {r.rid: list(r.out) for r in eng.run()}
+    return eng, chains
+
+
+def _chat_prompts(cfg, seed, lens=(5, 12, 30, 3, 17, 9, 44)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, cfg.vocab, n).astype(np.int32) for n in lens]
+
+
+@pytest.mark.parametrize("temperature,chunk", [(0.0, None), (0.8, 8)],
+                         ids=["greedy", "sampled-streamed"])
+def test_graphed_decode_is_bit_identical_to_eager(card, monkeypatch,
+                                                  temperature, chunk):
+    """Smoke danube served with its decode step replayed as one CUDA graph
+    against the same engine decoding eagerly: the same logits bit for bit
+    at every step and the same chains, through admissions, retirements,
+    rings that wrap (capacity 128 over a window of 32), with a prompt
+    streamed through the decode step (``prefill_chunk``) and seeded
+    sampling; every step after the first replays the graph."""
+    from repro_torch import trace
+
+    cfg, model, params = _smoke_lm(card)
+    prompts = _chat_prompts(cfg, 8)
+    kw = dict(temperature=temperature, prefill_chunk=chunk, seed=5)
+    trace.enable()
+    try:
+        eng, got = _chat(model, params, prompts, monkeypatch, **kw)
+        _, counters = trace.take()
+    finally:
+        trace.disable()
+    ref, want = _chat(model, params, prompts, monkeypatch, graphed=False,
+                      **kw)
+    steps = eng._decode_count
+    assert steps == ref._decode_count > 40
+    assert eng.stats["decode_graph_replays"] == steps - 1
+    assert eng.stats["decode_eager"] == 1
+    assert counters["serve.decode_graph"] == steps - 1
+    assert counters["serve.decode_eager"] == 1
+    assert ref.stats["decode_graph_replays"] == 0
+    assert ref.stats["decode_eager"] == steps
+    if chunk:
+        assert eng.stats["stream_prefill_tokens"] > 0
+    assert len(eng.logits) == len(ref.logits) == steps
+    for i, (a, b) in enumerate(zip(eng.logits, ref.logits)):
+        assert torch.equal(a, b), i
+    assert got == want and len(got) == len(prompts)
+
+
+def test_two_engines_on_one_model_keep_their_own_graphs(card, monkeypatch):
+    """Two engines on one model, stepped in turns: each captures its own
+    graph over its own caches, and each one's chains and logits equal
+    those of an eager engine serving its requests alone."""
+    from repro_torch.serve.engine import Request
+
+    cfg, model, params = _smoke_lm(card)
+    mine = (_chat_prompts(cfg, 1, (7, 20, 3)), _chat_prompts(cfg, 2,
+                                                            (11, 4, 26)))
+    engines = [_recorded_engine(model, params, batch_slots=4, capacity=128,
+                                device=card) for _ in mine]
+    for eng, prompts in zip(engines, mine):
+        for i, p in enumerate(prompts):
+            eng.add(Request(rid=i, prompt=p, max_new=30))
+    done = [[], []]
+    while any(e.queue or any(s is not None for s in e.slots)
+              for e in engines):
+        for k, eng in enumerate(engines):
+            if eng.queue or any(s is not None for s in eng.slots):
+                done[k] += eng.step()
+    a, b = (e.holder for e in engines)
+    assert a.graph is not None and b.graph is not None
+    assert a.graph is not b.graph and a.logits is not b.logits
+    for eng, prompts, finished in zip(engines, mine, done):
+        assert eng.stats["decode_graph_replays"] == eng._decode_count - 1
+        ref, want = _chat(model, params, prompts, monkeypatch, max_new=30,
+                          graphed=False)
+        assert {r.rid: list(r.out) for r in finished} == want
+        assert len(eng.logits) == len(ref.logits)
+        assert all(torch.equal(x, y) for x, y in zip(eng.logits,
+                                                     ref.logits))
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("deepseek-v2-lite", {}), ("h2o-danube-1.8b", {"kv_quant_bits": 8})],
+    ids=["mla-moe", "int8-kv"])
+def test_engine_decodes_other_stacks_eagerly(card, monkeypatch, arch,
+                                             changes):
+    """A smoke DeepSeek-V2-Lite engine (latent attention, experts) and an
+    int8-KV danube engine never capture: every decode step is eager."""
+    from repro_torch import trace
+
+    cfg, model, params = _smoke_lm(card, arch, **changes)
+    trace.enable()
+    try:
+        eng, chains = _chat(model, params,
+                            _chat_prompts(cfg, 3, (6, 13, 4)), monkeypatch,
+                            max_new=12)
+        _, counters = trace.take()
+    finally:
+        trace.disable()
+    assert eng._decode_count > 0 and len(chains) == 3
+    assert eng.stats["decode_eager"] == eng._decode_count \
+        == counters["serve.decode_eager"]
+    assert eng.stats["decode_graph_replays"] == 0
+    assert "serve.decode_graph" not in counters

@@ -23,13 +23,16 @@ F = torch.nn.functional
 import test_serve_edge as ref_edge  # noqa: E402
 import test_serve_engine as ref_se  # noqa: E402
 from repro.serve import engine as ref_engine  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch import trace  # noqa: E402
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.core.faults import FaultModel  # noqa: E402
 from repro_torch.kernels import bitplane_ops as bp  # noqa: E402
 from repro_torch.models.convert import init_numpy  # noqa: E402
+from repro_torch.models import attention as mattn  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
-from repro_torch.models.qweight import tree_leaves  # noqa: E402
+from repro_torch.models.qweight import quantize_tree, tree_leaves  # noqa
 from repro_torch.pim.fabric import FabricConfig, FabricLinearProbe  # noqa
+from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine, _bucket  # noqa
 from repro_torch.serve.kv import PagedKV  # noqa: E402
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig  # noqa
@@ -117,8 +120,14 @@ def _req(rid, plen, max_new=2, cls=Request, **kw):
     return cls(rid=rid, prompt=prompt, max_new=max_new, **kw)
 
 
+#: the port's decode steps by path (``_DecodeGraph``); the reference has
+#: one path
+_PATH_COUNTERS = ("decode_graph_replays", "decode_eager")
+
+
 def _counters(eng):
-    return {k: v for k, v in eng.stats.items() if isinstance(v, int)}
+    return {k: v for k, v in eng.stats.items()
+            if isinstance(v, int) and k not in _PATH_COUNTERS}
 
 
 def _serve_both(specs, stub="count", **kw):
@@ -135,6 +144,9 @@ def _serve_both(specs, stub="count", **kw):
         == [(r.rid, r.out, r.preemptions) for r in want]
     assert [r.rid for r in eng.rejected] == [r.rid for r in ref.rejected]
     assert _counters(eng) == _counters(ref)
+    # on the host every decode step is eager
+    assert eng.stats["decode_eager"] == eng._decode_count
+    assert eng.stats["decode_graph_replays"] == 0
     return eng, done
 
 
@@ -648,6 +660,83 @@ def test_serve_engine_keeps_its_caches_in_place(arch):
     for r in done:
         assert r.out == chip_smoke.manual_greedy(
             model, params, prompts[r.rid], 4, 2, 32, bucket)
+
+
+# ---------------------------------------------------------------------------
+# Which stacks decode through a CUDA graph (_decode_graph_takes)
+# ---------------------------------------------------------------------------
+#: the zoo's stacks whose every decode layer is GQA attention with a
+#: dense FFN
+GRAPHED_ARCHS = ("granite-20b", "llama3.2-1b", "qwen2-0.5b",
+                 "h2o-danube-1.8b", "chameleon-34b")
+ALL_ARCHS = list_archs() + ["deepseek-v2-lite"]
+
+
+def _stack(arch, kv_bits=None, weight_bits=None):
+    import dataclasses
+
+    cfg = get_config(arch, smoke=True)
+    if kv_bits:
+        cfg = dataclasses.replace(cfg, kv_quant_bits=kv_bits)
+    model = LM(cfg, device="cpu")
+    params = init_numpy(cfg, 0, device="cpu")
+    if weight_bits:
+        params = quantize_tree(params, weight_bits)
+    return model, params, model.init_cache(2, 16)
+
+
+def _as_if_on_card(monkeypatch):
+    """The predicates' device test answered as on the card: a plain
+    tensor counts as a CUDA one."""
+    monkeypatch.setattr(mattn, "_plain_cuda",
+                        lambda t: type(t) is torch.Tensor)
+
+
+@pytest.mark.parametrize("arch,kv_bits,weight_bits", [
+    (a, None, None) for a in ALL_ARCHS] + [
+    ("h2o-danube-1.8b", 8, None), ("h2o-danube-1.8b", 4, None),
+    ("h2o-danube-1.8b", None, 8), ("qwen2-0.5b", None, 4)])
+def test_decode_graph_takes_dense_gqa_stacks_only(monkeypatch, arch,
+                                                  kv_bits, weight_bits):
+    """Dense GQA stacks in bf16 qualify on their layer types; latent
+    attention, experts, recurrent layers, an encoder-decoder, a quantized
+    KV cache and quantized weights do not.  On the host no stack does."""
+    model, params, caches = _stack(arch, kv_bits, weight_bits)
+    assert not serve_engine._decode_graph_takes(model, params, caches)
+    _as_if_on_card(monkeypatch)
+    want = arch in GRAPHED_ARCHS and not kv_bits and not weight_bits
+    assert serve_engine._decode_graph_takes(model, params, caches) == want
+    assert not serve_engine._decode_graph_takes(_CountModel(), {}, {})
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "qwen2-0.5b"])
+def test_engine_on_the_host_decodes_eagerly(arch):
+    """On the CPU a graphable stack's engine runs every decode step
+    eagerly: ``serve.decode_eager`` and ``stats["decode_eager"]`` once a
+    step, no replay, and each chain the manual greedy decode's."""
+    model, params = _lm(arch, 2)
+    eng = ServeEngine(model, params, batch_slots=2, capacity=32,
+                      device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, model.cfg.vocab, n).astype(np.int32)
+               for n in (3, 4, 2)]
+    for rid, p in enumerate(prompts):
+        eng.add(Request(rid=rid, prompt=p, max_new=5))
+    trace.enable()
+    try:
+        done = eng.run()
+        _, counters = trace.take()
+    finally:
+        trace.disable()
+    assert eng._decode.takes is False and eng._decode.graph is None
+    assert counters["serve.decode_eager"] == eng.stats["decode_eager"] \
+        == eng._decode_count > 0
+    assert "serve.decode_graph" not in counters
+    assert eng.stats["decode_graph_replays"] == 0
+    for r in done:
+        assert r.out == chip_smoke.manual_greedy(
+            model, params, prompts[r.rid], 5, 2, 32,
+            _bucket(len(prompts[r.rid])))
 
 
 # ---------------------------------------------------------------------------
