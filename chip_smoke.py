@@ -74,7 +74,15 @@ through their public entry points:
   plain version and the widened path, timed at three live lengths beside
   their byte bound and SDPA; one decode step of the full-width model
   with the kernel against the plain path (launches, counters, logits,
-  the allocator's peak).
+  the allocator's peak);
+* the recurrent scan: the ``linear_scan`` kernel on a Mamba layer's
+  chunk at Jamba2-Mini's widths (256 and a ragged 188 steps of 8192 x
+  16 lanes), raw and through the ``repro_torch::linear_scan`` operator,
+  equal bit for bit to its plain version and timed beside it and its
+  byte bound; its backward against the plain version's autograd; and a
+  published-width Mamba mixer prefilling the longdoc pool's mean and
+  longest prompts, one launch a chunk, its output and state the plain
+  scan's bit for bit.
 
 Every result is checked exactly against numpy or the port's oracles, or
 within a stated tolerance.  Prints one JSON object per phase, the card's
@@ -119,7 +127,9 @@ from repro_torch.kernels import decode_attention as dattn  # noqa: E402
 from repro_torch.kernels import fabric_pack as fpk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
+from repro_torch.kernels import linear_scan as lscan  # noqa: E402
 from repro_torch.models import attention as mattn  # noqa: E402
+from repro_torch.models import recurrence, ssm  # noqa: E402
 from repro_torch.models.convert import init_numpy  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.qweight import tree_leaves, tree_map  # noqa
@@ -1637,6 +1647,170 @@ FABRIC_STEPS = 4
 SESSION_GRID = {"n_blocks": 512, "min_compute_blocks": 256}
 
 
+#: a Mamba layer's scan chunk at Jamba2-Mini's widths: (B, T, d_inner x
+#: d_state), and the steps of a ragged last chunk (a 700-token prompt's)
+SCAN_SHAPE = (1, 256, 8192 * 16)
+SCAN_RAGGED = 188
+#: prompt lengths a Mamba mixer prefills: the longdoc pool's mean and its
+#: longest (PERF.md section 4)
+SCAN_PROMPTS = (3610, 9322)
+#: the backward against the plain version's autograd: the same products
+#: summed in another order (relative; the absolute floor is this share of
+#: the largest gradient)
+SCAN_GRAD_RTOL = 1e-5
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def plain_scan():
+    """Every chunk of the recurrence scanned by its plain version, as on
+    the host."""
+    real = recurrence._on_host
+    recurrence._on_host = lambda t: True
+    try:
+        yield
+    finally:
+        recurrence._on_host = real
+
+
+def back_to_back_ms(fn, reps=100):
+    """Device time of one call of ``fn`` (ms): ``reps`` calls enqueued
+    back to back between two CUDA events, after a warm-up call.  For a
+    kernel that runs far longer than its launch takes on the host, as
+    one whose launch sets an attribute a graph capture may refuse."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_linear_scan(seed=0, shape=SCAN_SHAPE, ragged=SCAN_RAGGED,
+                      prompts=SCAN_PROMPTS, cfg=None, dev="cuda"):
+    """The chunk-scan kernel on the card.  At a Mamba layer's chunk and a
+    ragged one (seeded decay in [0, 1), inputs and state normal): the raw
+    launch twice and the ``repro_torch::linear_scan`` operator, each the
+    plain version's states bit for bit; the kernel's time over 100
+    launches back to back and its event time a call, the operator's
+    event time (the host's dispatch in it) and the plain version's,
+    beside the bound of the chunk's decay and input read once,
+    its states written once and the state before it read once at the
+    memory rate; no library computes a linear recurrence.  A gradient
+    through the operator at the ragged chunk against the plain version's
+    autograd within :data:`SCAN_GRAD_RTOL`, one launch forward and one
+    back.  Then a Mamba mixer of ``cfg`` (default Jamba2-Mini at its
+    published widths, weights drawn on the card) prefilling each of
+    ``prompts``: ``linear_scan_cuda.launches`` set to 0 just before,
+    one launch a chunk of 256, the output and the last state those of
+    the plain scan bit for bit."""
+    B, T, D = shape
+    dev = torch.device(dev)
+    built = build.build_all(("linear_scan",)) if dev.type == "cuda" else {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for t in (T, ragged):
+        a = torch.rand((B, t, D), generator=gen, device=dev)
+        b = torch.randn((B, t, D), generator=gen, device=dev)
+        h0 = torch.randn((B, D), generator=gen, device=dev)
+
+        def kernel():
+            return lscan.linear_scan_cuda(a, b, h0)
+
+        def op():
+            return torch.ops.repro_torch.linear_scan(a, b, h0)
+
+        def plain():
+            pa, pb = recurrence._inclusive_scan(a, b)
+            return pa * h0[:, None] + pb
+
+        got, again, through, want = kernel(), kernel(), op(), plain()
+        _sync(dev)
+        same = {"again": torch.equal(got, again),
+                "operator": torch.equal(through, want),
+                "plain": torch.equal(got, want)}
+        if not all(same.values()):
+            raise AssertionError(f"linear_scan at {(B, t, D)}: {same}, "
+                                 f"max abs err "
+                                 f"{(got - want).abs().max().item()}")
+        del got, again, through, want
+        kt = {"ms": back_to_back_ms(kernel), "event_ms": time_ms(kernel)}
+        nbytes = 4 * (3 * a.numel() + h0.numel())
+        bms, bby = bound_ms(nbytes, 0, INT32_OPS_PER_S)
+        cases.append({"shape": [B, t, D], "bit_identical": True,
+                      "ms": kt["ms"], "event_ms": kt["event_ms"],
+                      "op_event_ms": time_ms(op),
+                      "plain_event_ms": time_ms(plain, reps=10, warmup=2),
+                      "bound_ms": bms, "bound_by": bby, "bytes": nbytes,
+                      "library_ms": None,
+                      "roofline_pct": 100 * bms / kt["ms"]})
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    w = torch.randn(a.shape, generator=gen, device=dev)
+
+    def grads():
+        hc = recurrence._scan_chunk(*leaves)
+        return torch.autograd.grad((hc * w).sum(), leaves)
+
+    n0 = lscan.linear_scan_cuda.launches
+    got = grads()
+    _sync(dev)
+    grad_launches = lscan.linear_scan_cuda.launches - n0
+    with plain_scan():
+        want = grads()
+    grad_err = [((g - v).abs() / (v.abs() + v.abs().max())).max().item()
+                for g, v in zip(got, want)]
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, rtol=SCAN_GRAD_RTOL,
+                                   atol=1e-6 * v.abs().max().item())
+    if grad_launches != 2:
+        raise AssertionError(f"linear_scan backward: {grad_launches} "
+                             f"launches")
+    del a, b, h0, leaves, w, got, want
+
+    cfg = cfg or get_config("jamba2-mini")
+    p = ssm.ssm_init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                     device=dev)
+    by_path, mixer = {}, []
+    for n in prompts:
+        x = torch.randn((1, n, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            _sync(dev)
+            lscan.linear_scan_cuda.launches = 0
+            t0 = time.perf_counter()
+            y, c = ssm.ssm_apply(p, x, cfg)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            launches = lscan.linear_scan_cuda.launches
+            with plain_scan():
+                y_plain, c_plain = ssm.ssm_apply(p, x, cfg)
+        chunks = -(-n // 256)
+        row = {"tokens": n, "launches": launches, "chunks": chunks,
+               "first_call_s": wall,
+               "bit_identical": torch.equal(y, y_plain)
+               and torch.equal(c["h"], c_plain["h"])}
+        if launches != chunks or not row["bit_identical"]:
+            raise AssertionError(f"Mamba mixer prefill: {row}")
+        by_path[f"jamba_mamba_layer_prefill_{n}"] = launches
+        mixer.append(row)
+        del x, y, c, y_plain, c_plain
+    out = {"cases": cases, "grad": {"shape": [B, ragged, D],
+                                    "launches": grad_launches,
+                                    "max_rel_err": grad_err},
+           "mixer": mixer, "launches_by_path": by_path,
+           "built": {k: v["seconds"] for k, v in built.items()}}
+    emit({"phase": "linear_scan_vs_plain", "ok": True, **out})
+    return out
+
+
 def phase_fabric_dtypes(rng, dev=None, cfg=None, fabric_cfg=None,
                         shapes=None):
     """``fabric_matmul`` at int4, int8 (W4A8's class: ``idot8x28``, the
@@ -3033,6 +3207,7 @@ def main():
                                                  args.seed)
     pack = cse_checked(phase_fabric_pack, rng)
     decode = cse_checked(phase_decode_attention, rng, args.seed)
+    scan = cse_checked(phase_linear_scan, args.seed)
     serve_launches = cse_checked(phase_serve,
                                  args.seed)["lane_fold_launches"]
     cse_checked(phase_train, args.seed)
@@ -3086,6 +3261,21 @@ def main():
             "live", "max_abs_err", "ms", "plain_event_ms", "widened_ms",
             "bound_ms", "bound_by", "library_ms")} for c in decode["cases"]],
         "library": "scaled_dot_product_attention(enable_gqa=True)"})
+    whole = scan["cases"][0]
+    kernels.append({
+        "name": "linear_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/linear_scan.cu",
+        "replaces": None,
+        "launches": sum(scan["launches_by_path"].values()),
+        "launches_by_path": scan["launches_by_path"],
+        "shape": whole["shape"], "max_abs_err": 0.0,
+        "plain_ms": whole["plain_event_ms"],
+        **{k: whole[k] for k in ("ms", "op_event_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "by_chunk": [{k: c[k] for k in (
+            "shape", "ms", "op_event_ms", "plain_event_ms", "bound_ms",
+            "roofline_pct")} for c in scan["cases"]],
+        "backward_launches": scan["grad"]["launches"]})
     for name, line, st in (
             ("quant_matmul", "bitserial_matmul.py:106", gemm["quant_matmul"]),
             ("popcount_matmul", "bitserial_matmul.py:167",

@@ -21,6 +21,8 @@ ARCHS = {
 #: parity tests iterate ``list_archs()``, the reference's ten)
 PORT_ARCHS = {
     "deepseek-v2-lite": "deepseek_v2_lite",
+    "jamba2-mini": "jamba2_mini",
+    "jamba2-mini-stage0": "jamba2_mini_stage0",
 }
 
 

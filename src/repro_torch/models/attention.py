@@ -40,6 +40,9 @@ def attn_init(key, cfg, cross: bool = False, device=None) -> dict:
 
 
 def _qkv(params, x, kv_src, cfg, positions, kv_positions, use_rope=True):
+    """The projections; q and k rotated at their positions unless
+    ``use_rope`` is false or the config has no rotary embedding
+    (``rope_theta is None``: Jamba's attention has no positions)."""
     q = torch.einsum("bsd,dhk->bshk", x, dq(params["wq"]))
     k = torch.einsum("bsd,dhk->bshk", kv_src, dq(params["wk"]))
     v = torch.einsum("bsd,dhk->bshk", kv_src, dq(params["wv"]))
@@ -47,7 +50,7 @@ def _qkv(params, x, kv_src, cfg, positions, kv_positions, use_rope=True):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    if use_rope:
+    if use_rope and cfg.rope_theta is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
@@ -66,8 +69,9 @@ def chunked_attention(q, k, v, pos_q, pos_k, *, causal: bool,
     q, k: (B, Sq | Sk, H, hd);  v: (B, Sk, H, hd_v) (KV already repeated);
     pos_q: (B, Sq), pos_k: (B, Sk) int32 (-1 = invalid key slot); the
     scores carry ``scale`` (``None``: ``hd**-0.5``).
-    Working set per step is O(Sq * chunk), never O(Sk^2).  On a mesh it
-    runs on each rank's shards (``common.per_shard``).
+    Working set per step is O(Sq * chunk), never O(Sk^2); the last chunk
+    may be shorter.  On a mesh it runs on each rank's shards
+    (``common.per_shard``).
     """
     return per_shard(functools.partial(
         _chunked_attention, causal=causal, window=window, chunk=chunk,
@@ -79,7 +83,6 @@ def _chunked_attention(q, k, v, pos_q, pos_k, *, causal, window, chunk,
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     chunk = min(chunk, sk)
-    assert sk % chunk == 0, (sk, chunk)
     scale = hd ** -0.5 if scale is None else scale
 
     qf = q.to(torch.float32) * scale

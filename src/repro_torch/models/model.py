@@ -68,23 +68,28 @@ def _is_mla(cfg) -> bool:
 
 def _block_init(key, cfg: ModelConfig, btype: str, device=None,
                 dense=False):
-    """``dense``: a leading layer, whose FFN is the dense MLP whatever
-    ``cfg.moe`` says."""
+    """``dense``: the layer's FFN is the dense MLP whatever ``cfg.moe``
+    says (a leading layer, or a hybrid's layer without experts).  An
+    ``ssm`` block of a config with an FFN (Jamba's) has one after its
+    mixer, as an attention block does."""
     d = cfg.d_model
     ks = common.split_keys(key, 4)
 
     def norm():
         return torch.zeros((d,), dtype=torch.float32, device=device)
 
+    def ffn(k):
+        p["ln2"] = norm()
+        if cfg.moe is not None and not dense:
+            p["moe"] = moe_mod.moe_init(k, cfg, device=device)
+        elif cfg.d_ff > 0:
+            p["mlp"] = mlp_init(k, cfg, device=device)
+
     p = {"ln1": norm()}
     if btype == "attn":
         p["attn"] = (mla_mod.mla_init if _is_mla(cfg) else attn.attn_init)(
             ks[0], cfg, device=device)
-        p["ln2"] = norm()
-        if cfg.moe is not None and not dense:
-            p["moe"] = moe_mod.moe_init(ks[1], cfg, device=device)
-        elif cfg.d_ff > 0:
-            p["mlp"] = mlp_init(ks[1], cfg, device=device)
+        ffn(ks[1])
     elif btype == "xattn":       # decoder layer of an encoder-decoder
         p["attn"] = attn.attn_init(ks[0], cfg, device=device)
         p["lnx"] = norm()
@@ -93,6 +98,8 @@ def _block_init(key, cfg: ModelConfig, btype: str, device=None,
         p["mlp"] = mlp_init(ks[2], cfg, device=device)
     elif btype == "ssm":
         p["ssm"] = ssm_mod.ssm_init(ks[0], cfg, device=device)
+        if cfg.moe is not None or cfg.d_ff > 0:
+            ffn(ks[1])
     elif btype == "rec":
         p["rec"] = rg.rglru_init(ks[0], cfg, device=device)
         p["ln2"] = norm()
@@ -100,6 +107,13 @@ def _block_init(key, cfg: ModelConfig, btype: str, device=None,
     else:
         raise ValueError(btype)
     return p
+
+
+def _dense_at(cfg, i: int) -> bool:
+    """Whether layer ``i`` of a hybrid whose FFN kind varies by layer
+    (``moe_at``, Jamba's) takes the dense MLP."""
+    moe_at = getattr(cfg, "moe_at", None)
+    return moe_at is not None and not moe_at(i)
 
 
 def _window_for(cfg, btype):
@@ -130,12 +144,13 @@ def _write_state(cache, new):
 def _block_apply(params, h, cfg, btype, positions, mode, cache,
                  enc_out=None, enc_pos=None, causal=True, layer=0):
     """Returns (h, new_cache, aux).  In decode the new cache is ``cache``,
-    written in place.  An attention block records the spans
-    ``model.attention`` (its norm, attention, KV write and residual) and
-    ``model.mlp`` (norm, FFN and residual).  ``layer`` is the layer's
-    index in the model (the MoE's device counters)."""
+    written in place.  An attention block records the span
+    ``model.attention`` (its norm, attention, KV write and residual), a
+    Mamba block ``model.ssm`` (norm, mixer, state write and residual),
+    and a block with an FFN ``model.mlp`` (norm, FFN and residual).
+    ``layer`` is the layer's index in the model (the MoE's device
+    counters)."""
     new_cache = {}
-    aux = 0.0
 
     if btype == "attn" and _is_mla(cfg):
         with trace.span("model.attention"):
@@ -174,39 +189,27 @@ def _block_apply(params, h, cfg, btype, positions, mode, cache,
                                     causal=False, kv_src=enc_out,
                                     kv_positions=enc_pos)
                 h = h + y
-    if btype in ("attn", "xattn"):
+    elif btype in ("ssm", "rec"):
+        mixer = (ssm_mod.ssm_apply if btype == "ssm" else rg.rglru_apply)
+        with (trace.span("model.ssm") if btype == "ssm" else trace.NULL):
+            x = rmsnorm(h, params["ln1"], cfg.norm_eps)
+            y, c = mixer(params[btype], x, cfg,
+                         cache=cache[btype] if mode == "decode" else None)
+            if mode == "decode":
+                c = _write_state(cache[btype], c)
+            if mode != "train":
+                new_cache[btype] = c
+            h = h + y
+    else:
+        raise ValueError(btype)
+
+    aux = 0.0
+    if "ln2" in params:
         with trace.span("model.mlp"):
             f = rmsnorm(h, params["ln2"], cfg.norm_eps)
             y, aux = _ffn(params, cfg, f, mode, layer)
             if y is not None:
                 h = h + y
-        return h, new_cache, aux
-
-    x = rmsnorm(h, params["ln1"], cfg.norm_eps)
-    if btype == "ssm":
-        y, c = ssm_mod.ssm_apply(
-            params["ssm"], x, cfg,
-            cache=cache["ssm"] if mode == "decode" else None)
-        if mode == "decode":
-            c = _write_state(cache["ssm"], c)
-        if mode != "train":
-            new_cache["ssm"] = c
-        h = h + y
-
-    elif btype == "rec":
-        y, c = rg.rglru_apply(
-            params["rec"], x, cfg,
-            cache=cache["rec"] if mode == "decode" else None)
-        if mode == "decode":
-            c = _write_state(cache["rec"], c)
-        if mode != "train":
-            new_cache["rec"] = c
-        h = h + y
-        f = rmsnorm(h, params["ln2"], cfg.norm_eps)
-        y, _ = _ffn(params, cfg, f, mode, layer)
-        if y is not None:
-            h = h + y
-
     return h, new_cache, aux
 
 
@@ -391,7 +394,11 @@ class LM:
         cfg, dev = self.cfg, self.device
 
         def unit_init():
-            return {f"b{i}": _block_init(key, cfg, t, dev)
+            # a unit is whole periods of the layer plan, so a place in
+            # the unit fixes its layers' FFN kind
+            first = len(self.lead)
+            return {f"b{i}": _block_init(key, cfg, t, dev,
+                                         dense=_dense_at(cfg, first + i))
                     for i, t in enumerate(self.unit)}
 
         params = {"embed": dense_init(key, (cfg.vocab, cfg.d_model),

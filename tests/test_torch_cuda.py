@@ -555,6 +555,206 @@ def test_mla_moe_layers_at_published_widths_against_reference(card):
     assert fault[480:].median().item() > 0.1
 
 
+@pytest.mark.parametrize("B,T,D,tiny", [
+    (2, 1, 5, False), (1, 7, 33, False), (2, 88, 4100, False),
+    (1, 256, 131072, False), (2, 255, 96, True)])
+def test_linear_scan_kernel_matches_plain_bit_for_bit(card, B, T, D, tiny):
+    """The chunk-scan kernel against the recurrence's plain version on the
+    card, bit for bit: one step, ragged chunks, a whole chunk at a Mamba
+    layer's 8192 x 16 lanes, lanes that are no multiple of 32, and states
+    in the subnormal range."""
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import recurrence
+
+    g = torch.Generator().manual_seed(B * 1000 + T)
+    a = torch.rand((B, T, D), generator=g).to(card)
+    b = torch.randn((B, T, D), generator=g).to(card)
+    h0 = torch.randn((B, D), generator=g).to(card)
+    if tiny:            # states in the subnormal range
+        a, b, h0 = a * 1e-3, b * 1e-37, h0 * 1e-37
+    assert ls.takes(a, b, h0)
+    n = ls.linear_scan_cuda.launches
+    got = ls.linear_scan_cuda(a, b, h0)
+    pa, pb = recurrence._inclusive_scan(a, b)
+    want = pa * h0[:, None] + pb
+    torch.cuda.synchronize()
+    assert ls.linear_scan_cuda.launches == n + 1
+    assert torch.equal(got, want)
+    if tiny:
+        assert ((want != 0)
+                & (want.abs() < torch.finfo(torch.float32).tiny)).any()
+
+
+def test_linear_scan_kernel_reads_strided_views(card):
+    """Chunks sliced along time out of a longer (B, S, D) sequence and the
+    state as the last step of the previous chunk's states (views with
+    batch and time strides of their own)."""
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import recurrence
+
+    g = torch.Generator().manual_seed(7)
+    a = torch.rand((3, 300, 2, 48), generator=g).to(card)
+    b = torch.randn((3, 300, 2, 48), generator=g).to(card)
+    h = torch.randn((3, 5, 2, 48), generator=g).to(card)[:, -1]
+    for c0, c1 in ((0, 256), (256, 300)):
+        ac, bc = a[:, c0:c1], b[:, c0:c1]
+        got = ls.linear_scan_cuda(ac, bc, h)
+        pa, pb = recurrence._inclusive_scan(ac, bc)
+        want = pa * h[:, None] + pb
+        assert torch.equal(got, want)
+        h = got[:, -1]
+
+
+def test_mamba_prefill_on_card_scans_through_the_kernel(card, monkeypatch):
+    """A Mamba mixer at Jamba's published widths over a 700-token prompt
+    (chunks of 256, 256 and 188): the kernel's outputs and last state are
+    the plain scan's on the card, bit for bit, with one launch a chunk."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import recurrence, ssm
+
+    cfg = dataclasses.replace(get_config("jamba2-mini"), n_layers=8)
+    p = ssm.ssm_init(torch.Generator(device=card).manual_seed(1), cfg,
+                     device=card)
+    x = torch.randn((1, 700, cfg.d_model), device=card).to(torch.bfloat16)
+    n = ls.linear_scan_cuda.launches
+    with torch.no_grad():
+        got, got_c = ssm.ssm_apply(p, x, cfg)
+    assert ls.linear_scan_cuda.launches == n + 3
+    monkeypatch.setattr(recurrence, "_on_host", lambda t: True)
+    with torch.no_grad():
+        want, want_c = ssm.ssm_apply(p, x, cfg)
+    assert ls.linear_scan_cuda.launches == n + 3
+    assert torch.equal(got, want) and torch.equal(got_c["h"], want_c["h"])
+
+
+@pytest.mark.parametrize("S,chunk", [(300, 256), (64, 16)])
+def test_linear_scan_backward_on_card_matches_plain_autograd(card, S,
+                                                             chunk,
+                                                             monkeypatch):
+    """A gradient through the scan on the card: the operator's backward
+    runs the kernel on each chunk reversed in time (one launch a chunk
+    forward, one back, with a gradient recorded through ``a``, ``b`` and
+    ``h0``), and its gradients are the plain version's autograd ones on
+    the card within float32 rounding (the same products summed in
+    another order: 1e-5 relative, an absolute floor of 1e-6 of the
+    largest gradient, as on the host)."""
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import recurrence
+
+    g = torch.Generator().manual_seed(S)
+    a0 = torch.rand((2, S, 3, 1000), generator=g).to(card)
+    b0 = torch.randn((2, S, 3, 1000), generator=g).to(card)
+    h00 = torch.randn((2, 3, 1000), generator=g).to(card)
+    w = torch.randn((2, S, 3, 1000), generator=g).to(card)
+
+    def grads():
+        leaves = [t.clone().requires_grad_(True) for t in (a0, b0, h00)]
+        hs, h = recurrence.chunked_linear_scan(*leaves, chunk=chunk)
+        return torch.autograd.grad((hs * w).sum() + h.sum(), leaves)
+
+    n = ls.linear_scan_cuda.launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert ls.linear_scan_cuda.launches == n + 2 * -(-S // chunk)
+    monkeypatch.setattr(recurrence, "_on_host", lambda t: True)
+    want = grads()
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=1e-5,
+                                   atol=1e-6 * y.abs().max().item())
+
+
+def test_linear_scan_operator_copies_what_the_kernel_cannot_read(card):
+    """Chunks whose trailing dims are no contiguous run (lanes
+    transposed) scan through the operator, copied into one run, with the
+    plain version's states bit for bit; the raw launch refuses them."""
+    from repro_torch.kernels import linear_scan as ls
+    from repro_torch.models import recurrence
+
+    g = torch.Generator().manual_seed(3)
+    a = torch.rand((2, 100, 16, 64), generator=g).to(card).transpose(2, 3)
+    b = torch.randn((2, 100, 16, 64), generator=g).to(card).transpose(2, 3)
+    h = torch.randn((2, 16, 64), generator=g).to(card).transpose(1, 2)
+    assert not ls.takes(a, b, h)
+    with pytest.raises(ValueError, match="does not take"):
+        ls.linear_scan_cuda(a, b, h)
+    got = torch.ops.repro_torch.linear_scan(a, b, h)
+    pa, pb = recurrence._inclusive_scan(a, b)
+    assert torch.equal(got, pa * h[:, None] + pb)
+
+
+def test_jamba_layers_at_published_widths_against_reference(card):
+    """Jamba2-Mini at its published widths, cut to two layers of a period
+    of 2: a Mamba mixer with the dense FFN, then the position-free
+    attention layer with the 16 experts.  A 700-token prefill (the scan's
+    last chunk of 256 ragged, the experts grouped by
+    ``torch._grouped_mm``) into 1024-slot caches, then 32 decode steps
+    (the conv and scan states, the KV ring through the decode attention
+    kernel at hd 128, group 4), against the plain float32 reference's
+    forward over the 732 tokens.  The median position within 0.2 (bf16
+    rounding: 0.061, decoded 0.060; the fp8 control reads 0.596, decoded
+    0.580), and so the median of the decoded positions on their own,
+    which the attention with a rotation put back fails (0.424); 0.2 is
+    about the geometric mean of the port's and the nearer control's
+    readings (on an H100, seed 2**31 + 9).  Every position within 2.5, as
+    in ``test_torch_arch_jamba.py`` (a router tie flipped by rounding;
+    0.94 here)."""
+    import dataclasses
+    import importlib
+    import importlib.util
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LM
+
+    bench = Path(__file__).resolve().parents[1] / "portbench"
+    for name, path, pkg in (("portbench_reference", bench / "reference",
+                             True),
+                            ("portbench_pb_jamba", bench / "pb_jamba.py",
+                             False)):
+        spec = importlib.util.spec_from_file_location(
+            name, path / "__init__.py" if pkg else path,
+            submodule_search_locations=[str(path)] if pkg else None)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    ref = importlib.import_module("portbench_reference.jamba")
+    weights = sys.modules["portbench_pb_jamba"].weights
+    cfg = dataclasses.replace(get_config("jamba2-mini"), n_layers=2,
+                              attn_layer_period=2, attn_layer_offset=1)
+    assert cfg.layer_types() == ["ssm", "attn"] and cfg.moe_at(1)
+    w = weights(cfg, 2**31 + 9, card)
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, 732), dtype=torch.int32, device=card)
+    want = ref.forward(w, cfg, tokens)
+
+    def errors(cfg):
+        model = LM(cfg, device=card)
+        with torch.no_grad():
+            logits, caches = model.prefill(w, tokens=tokens[None, :700],
+                                           capacity=1024)
+            got = [logits[0]]
+            for i in range(700, 732):
+                step, caches = model.decode_step(
+                    w, caches, tokens[None, i:i + 1],
+                    torch.tensor([i], dtype=torch.int32, device=card))
+                got.append(step[0])
+        return (torch.cat(got).float() - want).abs().amax(-1)
+
+    err = errors(cfg)
+    ctl = (ref.forward(w, cfg, tokens, quant="fp8") - want).abs().amax(-1)
+    roped = errors(dataclasses.replace(cfg, rope_theta=10_000.0))
+    for name, e in (("port", err), ("fp8 control", ctl),
+                    ("with a rotation", roped)):
+        print(f"jamba {name} logit error: median {e.median().item()} max "
+              f"{e.max().item()} decode median {e[700:].median().item()}")
+    assert err.median().item() < 0.2 and err.max().item() < 2.5
+    assert err[700:].median().item() < 0.2
+    assert ctl.median().item() > 0.2 and ctl[700:].median().item() > 0.2
+    assert roped[700:].median().item() > 0.2
+
+
 # ---------------------------------------------------------------------------
 # decode attention over the bf16 cache
 # ---------------------------------------------------------------------------
@@ -850,12 +1050,13 @@ def test_two_engines_on_one_model_keep_their_own_graphs(card, monkeypatch):
 
 
 @pytest.mark.parametrize("arch,changes", [
-    ("deepseek-v2-lite", {}), ("h2o-danube-1.8b", {"kv_quant_bits": 8})],
-    ids=["mla-moe", "int8-kv"])
+    ("deepseek-v2-lite", {}), ("h2o-danube-1.8b", {"kv_quant_bits": 8}),
+    ("jamba2-mini", {})], ids=["mla-moe", "int8-kv", "hybrid"])
 def test_engine_decodes_other_stacks_eagerly(card, monkeypatch, arch,
                                              changes):
-    """A smoke DeepSeek-V2-Lite engine (latent attention, experts) and an
-    int8-KV danube engine never capture: every decode step is eager."""
+    """A smoke DeepSeek-V2-Lite engine (latent attention, experts), an
+    int8-KV danube engine and a smoke Jamba engine (Mamba states,
+    experts) never capture: every decode step is eager."""
     from repro_torch import trace
 
     cfg, model, params = _smoke_lm(card, arch, **changes)
